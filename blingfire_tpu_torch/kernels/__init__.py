@@ -40,14 +40,28 @@ KERNELS = {
                      _P, _P, _P, _P, _P]),
     "scatter_trie": ("scatter_trie.cu", "bf_scatter_trie",
                      [_P, _P, _I64, _P, _I64]),
+    "unigram_walk": ("unigram_walk.cu", "bf_unigram_walk",
+                     [_P, _P, _I, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "unigram_viterbi": ("unigram_viterbi.cu", "bf_unigram_viterbi",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P]),
 }
-# every kernel of the byte-BPE corpus path, with the route it takes
-ROUTES = {
-    "scatter_trie": "cuda",
-    "bpe_walk": "cuda",
-    "bpe_resolve": "cuda",
-    "pack_out_compact": "triton",
+# every kernel of each corpus path, with the route it takes
+PATHS = {
+    "bpe": {
+        "scatter_trie": "cuda",
+        "bpe_walk": "cuda",
+        "bpe_resolve": "cuda",
+        "pack_out_compact": "triton",
+    },
+    "unigram": {
+        "unigram_walk": "cuda",
+        "unigram_viterbi": "cuda",
+        "pack_out_compact": "triton",
+    },
 }
+ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
 
 launches: collections.Counter = collections.Counter()
 _libs: dict = {}
@@ -88,8 +102,9 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> str:
     src = os.path.join(CSRC, KERNELS[name][0])
-    common = os.path.join(CSRC, "common.cuh")
-    tag = source_tag(src, common, extra=" ".join(NVCC_FLAGS))
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
+    tag = source_tag(src, *headers, extra=" ".join(NVCC_FLAGS))
     return os.path.join(build_dir("kernels"), f"lib{name}.{tag}.so")
 
 

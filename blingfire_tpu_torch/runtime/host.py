@@ -3,14 +3,14 @@
 _fallback_ids, _patch_fallbacks, encode_corpus_flat, the native-units
 branch of encode_batch; _batches_by_bytes and _max_token_len).
 
-This slice serves chunk-safe byte/char BPE models through the unique-unit
-device path (runtime/dedup.py).  Not ported yet, and raising
-NotImplementedError (ROADMAP.md queue A item 5, unigram item 6): the
-classic doc-row path (encode_corpus, _classic_rows, _prep_batch),
-long-document chunking (_encode_overflow), the NumPy unit path, models that
-are not chunk-safe, and unigram models.  Fallback documents go to the
-scalar oracle (runtime/oracle.py), whose ids are reference-exact; the native
-C++ runtime the JAX package uses for them is a later slice.
+This port serves chunk-safe byte/char BPE and unigram-LM models through the
+unique-unit device path (runtime/dedup.py).  Not ported yet, and raising
+NotImplementedError (ROADMAP.md queue A item 5): the classic doc-row path
+(encode_corpus, _classic_rows, _prep_batch), long-document chunking
+(_encode_overflow), the NumPy unit path, and models that are not
+chunk-safe.  Fallback documents go to the scalar oracle
+(runtime/oracle.py), whose ids are reference-exact; the native C++ runtime
+the JAX package uses for them is a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 from ..formats.consts import SP_DELIMITER, TokAlgo
 from ..models.loader import Model
 from ..ops import bpe as bpe_ops
+from ..ops import unigram as uni_ops
 from ..ops.tables import build_comb_table_cached, build_trie_table_cached
 from . import metrics
 from .oracle import SpTokenizerOracle
@@ -29,7 +30,8 @@ ROADMAP_A5 = "ROADMAP.md queue A item 5"
 
 
 class SpTokenizer:
-    """Batched tokenizer for [pos-dict] byte/char BPE models on a GPU.
+    """Batched tokenizer for [pos-dict] ("sentence piece") models on a GPU:
+    byte/char BPE, BPE with merges, and unigram LM.
 
     ``device`` defaults to ``"cuda"``, where every device step is one of the
     port's kernels; ``device="cpu"`` runs their plain PyTorch versions."""
@@ -48,23 +50,30 @@ class SpTokenizer:
             TokAlgo.BPE_OPT,
             TokAlgo.BPE_OPT_WITH_MERGES,
         )
-        if not self.is_bpe:
-            raise NotImplementedError(
-                "unigram models are not ported yet: ROADMAP.md queue A item 6")
-        trie = build_trie_table_cached(
-            self.comb, seg.i2info_ids, seg.i2info_scores, model.source_key
-        )
-        self.tables = bpe_ops.make_device_tables(
-            self.comb,
-            seg.i2info_ids,
-            seg.i2info_scores,
-            max_len=self.max_token_len,
-            with_merges=seg.tok_algo == TokAlgo.BPE_OPT_WITH_MERGES,
-            fast=seg.tok_algo in (TokAlgo.BPE_OPT, TokAlgo.BPE_OPT_WITH_MERGES),
-            id_offset=seg.id_offset,
-            trie=trie,
-            device=self.device,
-        )
+        if self.is_bpe:
+            trie = build_trie_table_cached(
+                self.comb, seg.i2info_ids, seg.i2info_scores, model.source_key
+            )
+            self.tables = bpe_ops.make_device_tables(
+                self.comb,
+                seg.i2info_ids,
+                seg.i2info_scores,
+                max_len=self.max_token_len,
+                with_merges=seg.tok_algo == TokAlgo.BPE_OPT_WITH_MERGES,
+                fast=seg.tok_algo in (TokAlgo.BPE_OPT, TokAlgo.BPE_OPT_WITH_MERGES),
+                id_offset=seg.id_offset,
+                trie=trie,
+                device=self.device,
+            )
+        else:
+            self.tables = uni_ops.make_device_tables(
+                self.comb,
+                seg.i2info_ids,
+                seg.i2info_scores,
+                max_len=self.max_token_len,
+                id_offset=seg.id_offset,
+                device=self.device,
+            )
         self.n_doc = max_doc_symbols
         # arc budget: 4 arcs per position covers realistic text; rows
         # beyond it fall back (host.py:232-237)

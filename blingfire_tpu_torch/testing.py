@@ -1,8 +1,9 @@
-"""Seeded gpt2-shaped byte-BPE model and corpus for the tests and chip_smoke.py.
+"""Seeded gpt2-shaped byte-BPE and xlnet-shaped unigram-LM models and a
+corpus for the tests and chip_smoke.py.
 
-Not on the main path.  The model is laid out as the dict compiler lays out
-gpt2 (compiler/dict.py::vocab_from_hf_gpt2): byte mode, BPE_OPT, ids 1..n
-with score -id, id offset -1.  Its entries are
+Not on the main path.  The gpt2-shaped model is laid out as the dict
+compiler lays out gpt2 (compiler/dict.py::vocab_from_hf_gpt2): byte mode,
+BPE_OPT, ids 1..n with score -id, id offset -1.  Its entries are
 
 * the 255 non-space bytes plus ``▁`` (U+2581, the space mark), ids 1..256;
 * pieces of 2-16 symbols cut from a seeded word list, ``▁`` only first;
@@ -10,10 +11,12 @@ with score -id, id offset -1.  Its entries are
   that the unbounded depth-16 walk of packed-row region B sees live states
   at its cap and flags rows for the host fallback.
 
-Every piece has ``▁`` only in first position, so the model is chunk-safe and
-takes the unique-unit device path.  The corpus draws Zipfian words from the
-same word list, adds rare words, punctuation and long punctuation runs, and
-includes the edge cases of tests/corpus.py (copied below).
+The xlnet-shaped model (:func:`xlnet_shaped_model_bytes`) is a char-mode
+unigram LM with a charmap, laid out as xlnet is.  In both, every piece has
+``▁`` only in first position, so the model is chunk-safe and takes the
+unique-unit device path.  The corpus draws Zipfian words from the same word
+list, adds rare words, punctuation and long punctuation runs, and includes
+the edge cases of tests/corpus.py (copied below).
 """
 
 from __future__ import annotations
@@ -174,6 +177,162 @@ def gpt2_shaped_model_bytes(n: int = GPT2_VOCAB, seed: int = 0,
         use_byte_encoding=True,
     )
     return compile_dict_model(spec)
+
+
+XLNET_VOCAB = 32000
+XLNET_RESERVED = 3  # ids 0..2 (<unk> = 0, <s>, </s>) are not dictionary entries
+# scripts beside ASCII and Latin-1 that the alphabet covers in full
+_SCRIPT_RANGES = [
+    (0x391, 0x3CA),  # Greek
+    (0x410, 0x450),  # Cyrillic
+    (0x5D0, 0x5EB),  # Hebrew
+    (0x621, 0x64B),  # Arabic
+    (0x905, 0x93A), (0x93E, 0x94E),  # Devanagari letters, vowel signs
+    (0x3041, 0x3097),  # Hiragana
+    (0x30A1, 0x30FB),  # Katakana
+]
+_PUNCT = b".,!?;:'\"()-/%$#&*[]"
+
+
+def xlnet_charmap() -> dict[int, list[int]]:
+    """NFKC of the fullwidth forms U+FF01-FF5E and of the ligatures
+    U+FB00-FB06, as xlnet's normalization map has them."""
+    import unicodedata
+
+    cps = list(range(0xFF01, 0xFF5F)) + list(range(0xFB00, 0xFB07))
+    return {cp: [ord(ch) for ch in unicodedata.normalize("NFKC", chr(cp))]
+            for cp in cps}
+
+
+def _xlnet_alphabet(rng: np.random.Generator, n_cjk: int) -> list[int]:
+    import unicodedata
+
+    mapped = set(xlnet_charmap())
+    chars = set(range(0x21, 0x7F)) | set(range(0xA1, 0x100))
+    for lo, hi in _SCRIPT_RANGES:
+        chars |= set(range(lo, hi))
+    for s in EDGE_CASES:
+        chars |= {ord(ch) for ch in s}
+    chars = {c for c in chars
+             if c < 0x1F000  # emoji stay out: unknown runs
+             and c != SPM and c not in mapped
+             and not unicodedata.category(chr(c)).startswith(("C", "Z"))}
+    cjk = rng.choice(np.arange(0x4E00, 0xA000), n_cjk, replace=False)
+    return sorted(chars | {int(c) for c in cjk})
+
+
+def xlnet_shaped_entries(n: int = XLNET_VOCAB, seed: int = 0,
+                         n_cjk: int = 420) -> list[VocabEntry]:
+    """``n`` unigram-LM entries, ids from 3 in score order (see
+    :func:`xlnet_shaped_model_bytes`)."""
+    rng = np.random.default_rng(seed + 2)
+    alphabet = _xlnet_alphabet(rng, n_cjk)
+    assert n > len(alphabet) + 200, "vocabulary too small for its alphabet"
+    # frequency order: ▁ and ASCII first, then pieces and the rarer
+    # characters interleaved
+    ascii_ = [c for c in alphabet if c < 0x80]
+    rare = [c for c in alphabet if c >= 0x80]
+    # numbers and punctuation pairs: many entries, few automaton states
+    pool = ([tuple(str(v).encode()) for v in range(10, 1000)]
+            + [(SPM,) + tuple(str(v).encode()) for v in range(1000)]
+            + [(a, b) for a in _PUNCT for b in _PUNCT])
+    k = min(len(pool), (n - 1 - len(alphabet)) // 2)
+    pool = [pool[i] for i in np.sort(rng.permutation(len(pool))[:k])]
+    fixed = 1 + len(alphabet) + len(pool)
+    # word pieces: ▁ + every prefix of a frequent word (the pieces of a
+    # word share its path, so the automaton stays small), then the
+    # word's endings of 2-4 symbols as non-initial pieces
+    pieces: dict[tuple[int, ...], None] = {}
+    words = word_list(seed, max((n - fixed) // 3, 64))
+    for w in words:
+        t = tuple(w)
+        for j in range(1, len(t) + 1):
+            pieces.setdefault((SPM,) + t[:j], None)
+        for m in (2, 3, 4):
+            if len(t) > m:
+                pieces.setdefault(t[-m:], None)
+        if len(pieces) >= n - fixed:
+            break
+    assert len(pieces) >= n - fixed, "word list too short"
+    word_pieces = list(pieces)[: n - fixed]
+    singles = [(SPM,)] + [(c,) for c in ascii_]
+    head, tail = word_pieces[:2000], word_pieces[2000:]
+    rest = pool + [(c,) for c in rare] + tail
+    ordered = singles + head + [rest[i] for i in rng.permutation(len(rest))]
+    # log-probabilities falling with frequency rank, with jitter; a few
+    # hundred entries share a handful of exact values (first-max ties)
+    rank = np.arange(len(ordered), dtype=np.float64)
+    score = -(2.0 + np.log1p(rank)) + rng.normal(0.0, 0.3, len(ordered))
+    tie = rng.choice(len(ordered), 400, replace=False)
+    score[tie] = -np.round(-score[tie] * 2) / 2
+    score = np.minimum(score, -1.0).astype(np.float32)
+    by_score = np.argsort(-score, kind="stable")
+    return [VocabEntry(ordered[i], XLNET_RESERVED + k, float(score[i]))
+            for k, i in enumerate(by_score)]
+
+
+def xlnet_shaped_model_bytes(n: int = XLNET_VOCAB, seed: int = 0,
+                             n_cjk: int = 420) -> bytes:
+    """Compiled .bin image of an xlnet-shaped unigram-LM model.
+
+    Laid out as xlnet is: char mode, ``TokAlgo.DEFAULT`` (unigram), id
+    offset 0, ids 0-2 reserved (unknown = 0), entries from id 3 in
+    descending score order.  Its ``n`` entries are ▁ alone; single
+    characters covering ASCII, Latin-1, the scripts of the edge cases and
+    ``n_cjk`` seeded CJK characters (the alphabet runs to about a thousand
+    symbols; emoji stay out, so unknown runs occur); numbers of 2-3 digits
+    and ▁ + 1-3 digits; punctuation pairs; and pieces of 2-15 symbols cut
+    from the word list (▁ + each prefix of a word, the word's endings),
+    with ▁ only in first position.  Scores are float32 log-probabilities
+    falling with frequency rank, with seeded jitter, 400 of them rounded to
+    a few shared values.  The charmap is :func:`xlnet_charmap`.  At the
+    default size the model takes the dense table mode, as xlnet does."""
+    spec = DictModelSpec(
+        entries=xlnet_shaped_entries(n, seed, n_cjk),
+        tok_algo=TokAlgo.DEFAULT,
+        id_offset=0,
+        use_byte_encoding=False,
+        charmap=xlnet_charmap(),
+    )
+    return compile_dict_model(spec)
+
+
+def unigram_edge_rows():
+    """(model image, x_iw int32 (R, 12), lengths int32 (R,)) of hand-made
+    rows for the unigram kernels, on a tiny unigram model of max_len 3:
+    ▁, a, b, c and a few pieces, with q and u only inside "qu" (no arc ends
+    at a q) and ▁+a tying ▁a exactly.  The rows hold unknown symbols (-1)
+    and merged unknown runs, an empty row, a length past the row, ends
+    where every candidate is -FLT_MAX, and seeded symbols past the length,
+    which the walk still reads."""
+    S, a, b, c, q, u = SPM, 0x61, 0x62, 0x63, 0x71, 0x75
+    vocab = [((S,), -2.0), ((a,), -2.0), ((b,), -3.0), ((c,), -3.0),
+             ((S, a), -4.0), ((S, a, b), -7.0), ((a, b, c), -5.5),
+             ((b, c), -6.0), ((q, u), -4.5)]
+    blob = compile_dict_model(DictModelSpec(entries=[
+        VocabEntry(ch, 3 + i, s) for i, (ch, s) in enumerate(vocab)]))
+    alphabet = sorted({v for ch, _s in vocab for v in ch})
+    S, a, b, c, q, u = (alphabet.index(v) for v in (S, a, b, c, q, u))
+    W = 12
+    rows = [
+        ([S, a, b, c], 4),
+        ([S, -1, -1, a, -1, b, -1, -1, -1, c], 10),
+        ([], 0),
+        ([S, q, u], 3),
+        ([q, u, b], 1),  # q alone; the walk reads u past the length
+        ([S, q, b, c], 4),  # b's base is -FLT_MAX
+        ([-1] * W, W),
+        ([a, b, c] * (W // 3), W),
+        ([S, a, b], W + 5),  # a length past the row: nothing is emitted
+        ([S, a] + [q] * (W - 2), W),
+    ]
+    rng = np.random.default_rng(9)
+    x = rng.integers(-1, len(alphabet), (len(rows), W)).astype(np.int32)
+    lengths = np.zeros(len(rows), np.int32)
+    for i, (r, n) in enumerate(rows):
+        x[i, : len(r)] = r
+        lengths[i] = n
+    return blob, x, lengths
 
 
 CORPUS_WORDS = 20000  # distinct frequent words

@@ -1,7 +1,8 @@
 """The port's corpus path, SpTokenizer(..., device="cpu").encode_corpus_flat,
-against the JAX package's on tests/corpus.py::full_corpus(): ids and bounds
-must be identical.  A small batch_docs makes several batches share the
-unit cache, and some documents fall back to the host path."""
+against the JAX package's on tests/corpus.py::full_corpus(), for a
+gpt2-shaped byte-BPE model and an xlnet-shaped unigram-LM model: ids and
+bounds must be identical.  A small batch_docs makes several batches share
+the unit cache, and some documents fall back to the host path."""
 
 from __future__ import annotations
 
@@ -43,6 +44,24 @@ def test_encode_corpus_flat_matches_jax():
     assert got == [ids[bounds[i]:bounds[i + 1]].tolist() for i in range(40)]
 
 
+def test_unigram_encode_corpus_flat_matches_jax():
+    blob = testing.xlnet_shaped_model_bytes(4000, n_cjk=100)
+    docs = _docs()
+    c = metrics.Counters()
+    tok = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cpu")
+    assert not tok.is_bpe and tok._chunk_safe
+    ids, bounds = tok.encode_corpus_flat(docs, batch_docs=64, counters=c)
+    jtok = JaxSpTokenizer(jax_load_bytes(blob), max_doc_symbols=128)
+    jids, jbounds = jtok.encode_corpus_flat(docs, batch_docs=64)
+    assert ids.dtype == np.int32 and bounds.dtype == np.int64
+    np.testing.assert_array_equal(bounds, np.asarray(jbounds))
+    np.testing.assert_array_equal(ids, np.asarray(jids))
+    assert c.batches > 1 and c.fallback_docs > 0 and c.cache_units > 0
+    assert (ids == 0).any(), "emoji should give unknown tokens"
+    got = tok.encode_batch(docs[:40])
+    assert got == [ids[bounds[i]:bounds[i + 1]].tolist() for i in range(40)]
+
+
 def test_models_outside_the_slice_raise():
     from blingfire_tpu_torch.compiler.dict import (
         DictModelSpec, VocabEntry, compile_dict_model)
@@ -59,8 +78,13 @@ def test_models_outside_the_slice_raise():
     assert not tok._chunk_safe
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tok.encode_corpus_flat([b"a b"])
+    # the same for a unigram model: served, but not through the unit path
+    entries = testing.xlnet_shaped_entries(2000, n_cjk=20)
+    entries.append(VocabEntry((0x61, 0x2581, 0x62), 3 + len(entries), -20.0))
     uni = compile_dict_model(DictModelSpec(
-        entries=testing.gpt2_shaped_entries(600, n_long=10),
-        tok_algo=TokAlgo.DEFAULT, use_byte_encoding=True))
+        entries=entries, tok_algo=TokAlgo.DEFAULT,
+        charmap=testing.xlnet_charmap()))
+    tok = SpTokenizer(load_bytes(uni), max_doc_symbols=128, device="cpu")
+    assert not tok.is_bpe and not tok._chunk_safe
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpTokenizer(load_bytes(uni), max_doc_symbols=128, device="cpu")
+        tok.encode_corpus_flat([b"a b"])

@@ -1,4 +1,6 @@
-"""The port's four kernels against their plain versions on the card.
+"""The port's kernels against their plain versions on the card: the four of
+the byte-BPE path, and K5 unigram_walk and K6 unigram_viterbi in every row
+region and table mode.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -16,12 +18,14 @@ from corpus import full_corpus
 
 from blingfire_tpu_torch import kernels, native, testing
 from blingfire_tpu_torch.models.loader import load_bytes
-from blingfire_tpu_torch.ops import bpe
+from blingfire_tpu_torch.ops import bpe, unigram
+from blingfire_tpu_torch.ops.tables import build_comb_table
 from blingfire_tpu_torch.runtime import dedup
 from blingfire_tpu_torch.runtime.host import SpTokenizer
 
 pytestmark = pytest.mark.gpu
 REGIONS = [(0, 8, True), (1, 16, True), (2, 16, False)]
+MODES = ["dense", "wide", "comb"]
 
 
 def _need_cuda():
@@ -88,4 +92,87 @@ def test_encode_corpus_flat_on_the_card_matches_cpu():
     assert all(kernels.launches[k] > 0 for k in ("bpe_walk", "bpe_resolve",
                                                  "pack_out_compact"))
     cids, cbounds = cpu.encode_corpus_flat(docs, batch_docs=64)
+    assert (ids == cids).all() and (bounds == cbounds).all()
+
+
+def _force_mode(monkeypatch, mode: str) -> None:
+    if mode in ("wide", "comb"):
+        monkeypatch.setattr(unigram, "_DENSE_MAX_ENTRIES", 0)
+    if mode == "comb":
+        monkeypatch.setattr(unigram, "_WIDE_OWNER_SENTINEL", 0)
+
+
+def _uni_tables(blob: bytes, max_len: int):
+    seg = load_bytes(blob, use_cache=False).seg
+    return unigram.make_device_tables(
+        build_comb_table(seg.aut), seg.i2info_ids, seg.i2info_scores,
+        max_len=max_len, id_offset=seg.id_offset, device="cuda")
+
+
+def _uni_docs():
+    return [d.encode("utf-8") for d in full_corpus()]
+
+
+@functools.lru_cache(maxsize=1)
+def _uni_setup():
+    blob = testing.xlnet_shaped_model_bytes(4000, n_cjk=100)
+    tok = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cuda")
+    nu = native.units_analyze(_uni_docs(), 128, tok._sym2iw,
+                              tok._unit_runner().spm_iw, False, False,
+                              tok.seg.charmap)
+    b = [0, nu.split_rows1, nu.split_rows, nu.n_rows]
+    x = torch.from_numpy(nu.px[: nu.n_rows].copy()).cuda()
+    ln = torch.from_numpy(nu.plen[: nu.n_rows].copy()).cuda()
+    regions = [(x[b[i]:b[i + 1]], ln[b[i]:b[i + 1]]) for i in range(3)]
+    return blob, tok, regions
+
+
+def _uni_kernels_match_plain(t, x, ln, lw, unk_id):
+    L = unigram.walk_depth(t, lw)
+    n = kernels.launches["unigram_walk"], kernels.launches["unigram_viterbi"]
+    mk, ms = unigram.unigram_walk(t, x, ln, lw=lw)
+    pk, ps = unigram._walk_plain(t, x, ln, L)
+    assert torch.equal(mk, pk) and torch.equal(ms, ps)
+    res = unigram.unigram_viterbi(t, mk, ms, ln, unk_id)
+    pres = unigram._viterbi_plain(t, mk, ms, ln, unk_id)
+    assert (kernels.launches["unigram_walk"], kernels.launches["unigram_viterbi"]) \
+        == (n[0] + 1, n[1] + 1)
+    for a, b in zip(res, pres):
+        assert torch.equal(a, b)
+    return res
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("region,lw,bounded", REGIONS)
+def test_unigram_kernels_match_plain(monkeypatch, region, lw, bounded, mode):
+    _need_cuda()
+    blob, tok, regions = _uni_setup()
+    _force_mode(monkeypatch, mode)
+    t = _uni_tables(blob, tok.max_token_len)
+    assert t.mode == MODES.index(mode)
+    x, ln = regions[region]
+    res = _uni_kernels_match_plain(t, x, ln, lw if bounded else None, 0)
+    assert (res[3] > 0).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_unigram_kernels_on_edge_rows(monkeypatch, mode):
+    _need_cuda()
+    blob, x, ln = testing.unigram_edge_rows()
+    _force_mode(monkeypatch, mode)
+    t = _uni_tables(blob, 3)
+    for lw in (None, 2):
+        _uni_kernels_match_plain(t, torch.from_numpy(x).cuda(),
+                                 torch.from_numpy(ln).cuda(), lw, 7)
+
+
+def test_unigram_encode_corpus_flat_on_the_card_matches_cpu():
+    _need_cuda()
+    blob, _tok, _r = _uni_setup()
+    gpu = SpTokenizer(load_bytes(blob), max_doc_symbols=128)
+    cpu = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cpu")
+    kernels.reset_launches()
+    ids, bounds = gpu.encode_corpus_flat(_uni_docs(), batch_docs=64)
+    assert all(kernels.launches[k] > 0 for k in kernels.PATHS["unigram"])
+    cids, cbounds = cpu.encode_corpus_flat(_uni_docs(), batch_docs=64)
     assert (ids == cids).all() and (bounds == cbounds).all()

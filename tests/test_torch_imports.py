@@ -22,6 +22,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), "modules;", "forbidden:", bad)
 assert not bad, bad
 assert len(names) >= 20, names
+new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat"}
+assert new <= set(names), names
 """
 
 
@@ -33,8 +35,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
-    from blingfire_tpu_torch.ops.bpe import make_device_tables
+    from blingfire_tpu_torch.ops import bpe, unigram
     from blingfire_tpu_torch.runtime.host import SpTokenizer
 
-    for fn in (SpTokenizer.__init__, make_device_tables):
+    for fn in (SpTokenizer.__init__, bpe.make_device_tables,
+               unigram.make_device_tables):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
