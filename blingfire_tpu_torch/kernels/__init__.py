@@ -2,11 +2,12 @@
 
 CUDA sources live in ``csrc/``; each is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (no PyTorch headers), loaded
-with ctypes.  :func:`build` starts one ``nvcc`` per source, and the host
-library's ``g++``, all at once, so the first use pays the slowest single
-compile.  Libraries land in ``build/blingfire_tpu_torch/kernels/`` named by a
-hash of their sources.  The Triton kernel (``pack_triton.py``) is compiled
-by Triton at its first launch.
+with ctypes.  :func:`build` starts one ``nvcc`` per source, and the
+``g++`` of the host library and of the native runtime, all at once, so the
+first use pays the slowest single compile.  Libraries land in
+``build/blingfire_tpu_torch/kernels/``, one per source, named by the source
+and a hash of it and the headers.  The Triton kernel (``pack_triton.py``)
+is compiled by Triton at its first launch.
 
 Every launch goes through :func:`launch` (or :func:`note_launch` for the
 Triton kernel), which adds one to ``launches[name]``: a run can show that
@@ -46,6 +47,12 @@ KERNELS = {
     "unigram_viterbi": ("unigram_viterbi.cu", "bf_unigram_viterbi",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P]),
+    "wp_subword_dense": ("wp_subword.cu", "bf_wp_subword_dense",
+                         [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P]),
+    "wp_subword_comb": ("wp_subword.cu", "bf_wp_subword_comb",
+                        [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _P]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -59,6 +66,12 @@ PATHS = {
         "unigram_walk": "cuda",
         "unigram_viterbi": "cuda",
         "pack_out_compact": "triton",
+    },
+    # the comb pass runs only for a sub-grammar too large for the dense table
+    "wordpiece": {
+        "scatter_trie": "cuda",
+        "wp_subword_dense": "cuda",
+        "wp_subword_comb": "cuda",
     },
 }
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
@@ -87,6 +100,33 @@ def check(t, dtype, shape: tuple, name: str) -> None:
         )
 
 
+class Reads:
+    """The table entries a plain version reads, for its kernel's byte
+    bound: a plain walk given one notes each gather (``note``) and its live
+    lane-steps (``step``); ``table_bytes`` charges each entry once."""
+
+    def __init__(self):
+        self._idx: dict = {}
+        self._item: dict = {}
+        self.steps = 0
+
+    def note(self, name: str, table, idx, mask) -> None:
+        self._item[name] = table.element_size()
+        self._idx.setdefault(name, []).append(idx[mask].reshape(-1).unique())
+
+    def step(self, live) -> None:
+        self.steps += int(live.sum())
+
+    def entries(self, name: str) -> int:
+        import torch
+
+        return int(torch.cat(self._idx[name]).unique().numel()) \
+            if name in self._idx else 0
+
+    def table_bytes(self) -> int:
+        return sum(self.entries(k) * self._item[k] for k in self._idx)
+
+
 def reset_launches() -> None:
     launches.clear()
 
@@ -101,11 +141,15 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, KERNELS[name][0])
+    """The library of kernel ``name``: one per CUDA source (kernels that
+    share a source share it)."""
+    src_name = KERNELS[name][0]
+    src = os.path.join(CSRC, src_name)
     headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                      if f.endswith(".cuh"))
     tag = source_tag(src, *headers, extra=" ".join(NVCC_FLAGS))
-    return os.path.join(build_dir("kernels"), f"lib{name}.{tag}.so")
+    stem = os.path.splitext(src_name)[0]
+    return os.path.join(build_dir("kernels"), f"lib{stem}.{tag}.so")
 
 
 def _job(name: str):
@@ -114,12 +158,13 @@ def _job(name: str):
 
 
 def build(with_native: bool = True) -> None:
-    """Compile every CUDA source (and the host library) in parallel."""
-    from ..native import build_job
+    """Compile every CUDA source (and, with_native, the host library and
+    the native runtime) in parallel."""
+    from .. import native
 
-    jobs = [_job(n) for n in KERNELS]
+    jobs = list({lib_path(n): _job(n) for n in KERNELS}.values())
     if with_native:
-        jobs.append(build_job())
+        jobs += [native.build_job(), native.runtime_build_job()]
     build_all(jobs)
 
 

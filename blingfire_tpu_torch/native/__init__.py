@@ -1,7 +1,10 @@
 # Copy of blingfire_tpu/native/__init__.py (get_lib, NativeUnits, UnitCache,
-# units_analyze only).  The library is built from the copy of prep.cpp in
-# this directory, at first use, into build/blingfire_tpu_torch/native/.
-"""ctypes bindings for the native host library (prep, unit dedup, stitch).
+# units_analyze, get_runtime).  Both libraries are built from the copies of
+# prep.cpp and runtime.cpp in this directory, at first use, into
+# build/blingfire_tpu_torch/native/.
+"""ctypes bindings for the native host library (prep, unit dedup, stitch)
+and the native runtime (the reference-compatible C ABI: TextToIds and its
+family, and the WordPiece hybrid's level-0 scan, intern and stitch).
 
 A failed build raises: there is no NumPy fallback."""
 
@@ -9,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import sys
 import threading
 
 import numpy as np
@@ -17,6 +21,7 @@ from ..buildutil import build_all, build_dir, source_tag
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _lib = None
+_rt = None
 _lock = threading.Lock()
 
 
@@ -230,3 +235,86 @@ def units_analyze(
     nu = NativeUnits(handle, B, n_sym, counts)
     nu._cache_ref = cache  # keep the cache alive while the state lives
     return nu
+
+
+# -- full native host runtime (libbtf_runtime, reference-compatible C ABI) --
+
+
+def _runtime_tag() -> str:
+    srcs = [os.path.join(_DIR, f) for f in
+            ("runtime.cpp", "gen_default_models.py", "Makefile")]
+    srcs += [os.path.join(_DIR, "..", "models_data", f"{m}.bin")
+             for m in ("wbd", "sbd")]
+    return source_tag(*srcs)
+
+
+def runtime_lib_path() -> str:
+    return os.path.join(build_dir("native"),
+                        f"libbtf_runtime.{_runtime_tag()}.so")
+
+
+def runtime_build_job():
+    """(out_path, argv_of) for buildutil.build_all: generates the default
+    models' source beside the library (the generator replaces it
+    atomically), then compiles runtime.cpp with it."""
+    gen = os.path.join(build_dir("native"),
+                       f"default_models.{_runtime_tag()}.cxx")
+    return runtime_lib_path(), lambda tmp: [
+        "make", "-s", "-C", _DIR, "runtime", f"RT_OUT={tmp}", f"GEN={gen}",
+        f"PYTHON={sys.executable}",
+    ]
+
+
+def _bind_wp(lib) -> None:
+    """Signatures of the WordPiece hybrid's entry points (runtime.cpp
+    BtlWp*; runtime/wp_hybrid.py)."""
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    sigs = {
+        "BtlWpAnalyzeC": (P, [P, P, ctypes.c_char_p, P, I, I, P]),
+        "BtlWpCacheNew": (P, []),
+        "BtlWpCacheFree": (None, [P]),
+        "BtlWpCacheStats": (None, [P, P]),
+        "BtlWpUnits": (None, [P, P, P, P]),
+        "BtlWpStitch": (I64, [P, P, I64, I, P, P, I, P, I64, P, P]),
+        "BtlWpFree": (None, [P]),
+    }
+    for name, (res, args) in sigs.items():
+        f = getattr(lib, name)
+        f.restype = res
+        f.argtypes = args
+
+
+def get_runtime():
+    """ctypes handle to the native C-ABI runtime (TextToIds/Words/... family).
+
+    Builds it at first use from runtime.cpp, installs the full-Unicode
+    casefold table (runtime.cpp SetCaseFoldTable) and returns the loaded
+    library.  A failed build raises."""
+    global _rt
+    with _lock:
+        if _rt is None:
+            out, argv_of = runtime_build_job()
+            build_all([(out, argv_of)])
+            lib = ctypes.cdll.LoadLibrary(out)
+            lib.LoadModel.restype = ctypes.c_void_p
+            lib.LoadModel.argtypes = [ctypes.c_char_p]
+            lib.SetModel.restype = ctypes.c_void_p
+            lib.SetModel.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.FreeModel.restype = ctypes.c_int
+            lib.FreeModel.argtypes = [ctypes.c_void_p]
+            lib.TextToIds.restype = ctypes.c_int
+            lib.TextToIds.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ]
+            _bind_wp(lib)
+            lib.SetCaseFoldTable.restype = None
+            lib.SetCaseFoldTable.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            from ..runtime.casefold import tolower_table
+
+            table = np.ascontiguousarray(tolower_table(), dtype=np.int32)
+            lib.SetCaseFoldTable(table.ctypes.data_as(ctypes.c_void_p),
+                                 len(table))
+            lib._casefold_table = table  # keep the buffer alive
+            _rt = lib
+    return _rt

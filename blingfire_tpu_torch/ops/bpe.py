@@ -204,8 +204,10 @@ def _walk_supported(tables: BpeDeviceTables, spm_iw: int):
             "rank_by_id merges mode is not ported yet: " + ROADMAP_A5)
 
 
-def _walk_plain(tables, x_iw, lengths, spm_iw: int, LW: int, overflow: bool):
-    """Plain version of K1: blingfire_tpu/ops/bpe.py::_walk_impl, trie mode."""
+def _walk_plain(tables, x_iw, lengths, spm_iw: int, LW: int, overflow: bool,
+                reads=None):
+    """Plain version of K1: blingfire_tpu/ops/bpe.py::_walk_impl, trie mode;
+    ``reads`` (a ``kernels.Reads``) notes the trie entries it reads."""
     B, N = x_iw.shape
     dev = x_iw.device
     pos = torch.arange(N, dtype=torch.int32, device=dev)
@@ -222,7 +224,11 @@ def _walk_plain(tables, x_iw, lengths, spm_iw: int, LW: int, overflow: bool):
     for d in range(LW):
         c = x_pad[:, d : d + N]
         flat = (state.clamp(min=0).long() * A + c.clamp(min=0).long()).clamp(0, size - 1)
-        ns = torch.where((state >= 0) & (c >= 0), trie[flat], -1)
+        live = (state >= 0) & (c >= 0)
+        ns = torch.where(live, trie[flat], -1)
+        if reads is not None:
+            reads.step(live)
+            reads.note("trie_next", trie, flat, live)
         fin = (ns >= 0) & (ns < V)
         mid = ns.clamp(min=0)
         nxt_spm = spm_or_end[:, d + 1 : d + 1 + N].to(torch.int32)

@@ -1,0 +1,405 @@
+"""The WordPiece sub-token pass on the card: port of the parts of
+blingfire_tpu/ops/lexer.py that the WordPiece hybrid runs.
+
+The hybrid (runtime/wp_hybrid.py) packs unique words, each with its own L
+and R anchors, into rows of 128 lanes.  The pass walks every lane of a row
+from its unit's sub-function state in lockstep, keeps the deepest final of
+each start, maps it to the rule's action (RightCx, tag, function) and runs
+the reference's sequential FromPos skip scan (FALexTools_t.h:229-397) over
+the row; the matches come out left-compacted as packed lanes
+``(tag + 1) | from << 17 | to << 24 | nested << 31`` with the count in
+column 128, the layout native ``BtlWpStitch`` reads.
+
+Kernels here, each beside its plain PyTorch version:
+
+* ``wp_subword_pass_dense`` (K7, ``kernels/csrc/wp_subword.cu``): the walk
+  in the dense finals-first table of :func:`make_dense_sub`, one gather a
+  step;
+* ``wp_subword_pass`` (K8, same source): the comb-table walk, used when
+  :func:`make_dense_sub` declines the dense table;
+* :func:`make_dense_sub` scatters its dense table on the card with K3
+  (``ops/bpe.py::scatter_trie``), which computes ``_scatter_dense``.
+
+A wrapper runs the plain version only for tensors on the CPU; for a CUDA
+tensor it launches its kernel or raises.  The row-level lexer pass of the
+pattern lexer (``lexer_pass``) is not ported yet (ROADMAP.md queue A item
+8).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .bpe import scatter_trie
+from .tables import CombTable
+
+INT32_MAX = 2**31 - 1
+MAX_ROW = 128  # from/to are 7-bit fields of the lane layout
+DENSE_MAX_ENTRIES = 256_000_000  # make_dense_sub's cap (lexer.py:226)
+ROADMAP_A8 = "ROADMAP.md queue A item 8"
+
+
+@dataclass(frozen=True)
+class LexerDeviceTables:
+    """Comb tables and densified actions of a [wbd] grammar on ``device``."""
+
+    base: torch.Tensor  # int32[n_states]
+    owner: torch.Tensor  # int32[slots]
+    nxt: torch.Tensor  # int32[slots]
+    final: torch.Tensor  # bool[n_states]
+    moore_ow: torch.Tensor  # int32[n_states]
+    act_right: torch.Tensor  # int32[n_acts] RightCx
+    act_tag: torch.Tensor  # int32[n_acts]
+    act_fn: torch.Tensor  # int32[n_acts] (-1 = no function call)
+    any_iw: int  # dense id of IW_ANY
+    n_slots: int
+    max_token_length: int
+
+
+def make_device_tables(table: CombTable, moore_ow, acts: dict,
+                       max_token_length: int,
+                       device: str | torch.device = "cuda"
+                       ) -> LexerDeviceTables:
+    """Port of blingfire_tpu/ops/lexer.py::make_device_tables (lexer.py:52-90):
+    device tables, actions densified by rule Ow.
+
+    Only the single-function action shape of every reference model is
+    supported on the card (LeftCx == 0, at most one function); other
+    actions raise NotImplementedError (ROADMAP.md queue A item 8)."""
+    n_acts = max(acts.keys()) + 1 if acts else 0
+    act_right = np.zeros(n_acts, np.int32)
+    act_tag = np.zeros(n_acts, np.int32)
+    act_fn = np.full(n_acts, -1, np.int32)
+    for k, a in acts.items():
+        a = np.asarray(a)
+        if int(a[0]) != 0:
+            raise NotImplementedError(f"{ROADMAP_A8}: LeftCx != 0")
+        act_right[k] = int(a[1])
+        act_tag[k] = int(a[2])
+        fns = []
+        if len(a) > 3:
+            i = 3 if int(a[2]) == 0 else 4
+            # layout: (L, R, Tag [,0, FnIds...]) — the 0 delimiter is the
+            # Tag slot itself when Tag==0 (FALexTools_t.h:176-190)
+            if int(a[2]) != 0 and int(a[3]) != 0:
+                raise ValueError(f"unexpected action layout {a.tolist()}")
+            fns = [int(x) for x in a[i:]]
+        if len(fns) > 1:
+            raise NotImplementedError(f"{ROADMAP_A8}: multi-function action")
+        if fns:
+            act_fn[k] = fns[0]
+    any_dense = int(table.sym2iw[0]) if len(table.sym2iw) > 0 else -1
+
+    def dev(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                           dtype=dtype)
+
+    return LexerDeviceTables(
+        base=dev(table.base),
+        owner=dev(table.owner),
+        nxt=dev(table.nxt),
+        final=dev(table.final, torch.bool),
+        moore_ow=dev(moore_ow),
+        act_right=dev(act_right),
+        act_tag=dev(act_tag),
+        act_fn=dev(act_fn),
+        any_iw=any_dense,
+        n_slots=table.n_slots,
+        max_token_length=max_token_length,
+    )
+
+
+def dense_sub_edges(table: CombTable, moore_ow, fn_inis: list[int]):
+    """Host half of :func:`make_dense_sub`: the transitions reachable from
+    the sub-function initial states, finals numbered first.
+
+    Returns (idx int64, vals int32, ow_perm int32, perm int64, n_f, n_reach):
+    the dense table is int32[n_reach * A] = -1 with ``[idx] = vals``."""
+    base = np.asarray(table.base)
+    owner = np.asarray(table.owner)
+    nxt = np.asarray(table.nxt)
+    final = np.asarray(table.final)
+    A = table.n_iws
+    S = table.n_states
+    occ = np.flatnonzero(owner >= 0)
+    order = np.argsort(owner[occ], kind="stable")
+    so = owner[occ][order]
+    slot_sorted = occ[order]
+    iw_sorted = (occ - base[owner[occ]])[order]
+    row = np.searchsorted(so, np.arange(S + 1))
+    seen = np.zeros(S, bool)
+    stack = [s for s in dict.fromkeys(fn_inis) if 0 <= s < S]
+    for s in stack:
+        seen[s] = True
+    e_src, e_iw, e_dst = [], [], []
+    while stack:
+        s = stack.pop()
+        for k in range(row[s], row[s + 1]):
+            d = int(nxt[slot_sorted[k]])
+            if d < 0:
+                continue
+            e_src.append(s)
+            e_iw.append(int(iw_sorted[k]))
+            e_dst.append(d)
+            if not seen[d]:
+                seen[d] = True
+                stack.append(d)
+    reach = np.flatnonzero(seen)
+    n_reach = len(reach)
+    # finals first
+    fin_mask = final[reach]
+    ordered = np.concatenate([reach[fin_mask], reach[~fin_mask]])
+    n_f = int(fin_mask.sum())
+    perm = np.full(S, -1, np.int64)
+    perm[ordered] = np.arange(n_reach)
+    es = perm[np.asarray(e_src, np.int64)]
+    ed = perm[np.asarray(e_dst, np.int64)]
+    idx = es * A + np.asarray(e_iw, np.int64)
+    ow_perm = np.zeros(max(n_reach, 1), np.int32)
+    ow_perm[perm[ordered]] = np.asarray(moore_ow)[ordered]
+    return idx, ed.astype(np.int32), ow_perm, perm, n_f, n_reach
+
+
+def make_dense_sub(table: CombTable, moore_ow, fn_inis: list[int],
+                   device: str | torch.device = "cuda"):
+    """Dense finals-first expansion of the sub-token grammar: port of
+    blingfire_tpu/ops/lexer.py::make_dense_sub (lexer.py:184-243).
+
+    With a dense (state, iw) -> next table whose finals are numbered first
+    (a final is ``ns < n_f``) and the action Ow gathered once from the
+    deepest final, the walk is one gather a step.  The reachable edges are
+    found on the host and cross to the card as CSR pairs; K3 scatters them
+    into the dense table there.
+
+    Returns (dnext, ow_perm, perm, n_f, n_reach) with dnext and ow_perm on
+    ``device`` and perm a NumPy array, or None when the dense table would
+    pass DENSE_MAX_ENTRIES."""
+    idx, vals, ow_perm, perm, n_f, n_reach = dense_sub_edges(
+        table, moore_ow, fn_inis)
+    size = n_reach * table.n_iws
+    if size > DENSE_MAX_ENTRIES:
+        return None
+    device = torch.device(device)
+    dnext = scatter_trie(torch.from_numpy(idx).to(device),
+                         torch.from_numpy(vals).to(device), int(size))
+    return dnext, torch.from_numpy(ow_perm).to(device), perm, n_f, n_reach
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def _pad_row(x: torch.Tensor, lw: int) -> torch.Tensor:
+    B = x.shape[0]
+    return torch.cat([x, torch.full((B, lw + 1), -1, dtype=torch.int32,
+                                    device=x.device)], dim=1)
+
+
+def _walk_dense_plain(tables: LexerDeviceTables, dnext, ow_perm, x, init,
+                      r_iw: int, lw: int, n_f: int, n_a: int, reads=None):
+    """(fin_pos, fin_ow) of the dense walk (lexer.py:260-291); ``reads``
+    (a ``kernels.Reads``) notes the table entries it reads."""
+    B, M = x.shape
+    pos = torch.arange(M, dtype=torch.int32, device=x.device)
+    xp = _pad_row(x, lw)
+    valid = (x >= 0) & (x != r_iw)
+    state = torch.where(valid, init, -1).to(torch.int32)
+    fin_pos = torch.full((B, M), -1, dtype=torch.int32, device=x.device)
+    fin_state = torch.full((B, M), -1, dtype=torch.int32, device=x.device)
+    top = dnext.numel() - 1
+    for d in range(lw):
+        c = xp[:, d : d + M]
+        flat = (state.clamp(min=0).long() * n_a + c.clamp(min=0).long()
+                ).clamp(0, top)
+        live = (state >= 0) & (c >= 0)
+        ns = torch.where(live, dnext[flat], -1)
+        if reads is not None:
+            reads.step(live)
+            reads.note("dnext", dnext, flat, live)
+        if d >= tables.max_token_length:
+            # letters beyond the token-length bound only via the R anchor
+            ns = torch.where(c == r_iw, ns, -1)
+        fin = (ns >= 0) & (ns < n_f)
+        fin_pos = torch.where(fin, pos + d, fin_pos)
+        fin_state = torch.where(fin, ns, fin_state)
+        state = ns
+    fs = fin_state.clamp(0, ow_perm.numel() - 1).long()
+    fin_ow = torch.where(fin_state >= 0, ow_perm[fs], -1)
+    if reads is not None:
+        reads.note("ow_perm", ow_perm, fs, fin_state >= 0)
+    return fin_pos, fin_ow
+
+
+def _walk_comb_plain(tables: LexerDeviceTables, x, init, r_iw: int, lw: int,
+                     reads=None):
+    """(fin_pos, fin_ow) of the comb walk (lexer.py:376-401); ``reads`` as
+    in :func:`_walk_dense_plain`."""
+    B, M = x.shape
+    pos = torch.arange(M, dtype=torch.int32, device=x.device)
+    xp = _pad_row(x, lw)
+    valid = (x >= 0) & (x != r_iw)
+    state = torch.where(valid, init, -1).to(torch.int32)
+    fin_pos = torch.full((B, M), -1, dtype=torch.int32, device=x.device)
+    fin_ow = torch.full((B, M), -1, dtype=torch.int32, device=x.device)
+    n_states = tables.base.numel()
+    for d in range(lw):
+        c = xp[:, d : d + M]
+        s_safe = state.clamp(0, n_states - 1).long()
+        slot = (tables.base[s_safe].long() + c.clamp(min=0).long()).clamp(
+            0, tables.n_slots - 1)
+        live = (state >= 0) & (c >= 0)
+        hit = (tables.owner[slot] == state) & live
+        ns = torch.where(hit, tables.nxt[slot], -1)
+        if d >= tables.max_token_length:
+            ns = torch.where(c == r_iw, ns, -1)
+        ns_safe = ns.clamp(0, n_states - 1).long()
+        fin = (ns >= 0) & tables.final[ns_safe]
+        if reads is not None:
+            reads.step(live)
+            reads.note("base", tables.base, s_safe, live)
+            reads.note("owner", tables.owner, slot, live)
+            reads.note("nxt", tables.nxt, slot, hit)
+            reads.note("final", tables.final, ns_safe, ns >= 0)
+            reads.note("moore_ow", tables.moore_ow, ns_safe, fin)
+        fin_pos = torch.where(fin, pos + d, fin_pos)
+        fin_ow = torch.where(fin, tables.moore_ow[ns_safe], fin_ow)
+        state = ns
+    return fin_pos, fin_ow
+
+
+def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
+                r_iw: int, reads=None):
+    """The SCAN + EMIT tail, _wp_emit (lexer.py:295-350): (B, M + 2)."""
+    B, M = x.shape
+    pos = torch.arange(M, dtype=torch.int32, device=x.device)
+    is_l = x == l_iw
+    valid = (x >= 0) & (x != r_iw)
+    # XLA clamps the action gathers at both ends (lexer.py:308-310)
+    o = fin_ow.clamp(0, tables.act_right.numel() - 1).long()
+    right = tables.act_right[o]
+    tag = torch.where(fin_ow >= 0, tables.act_tag[o], 0)
+    fn = torch.where(fin_ow >= 0, tables.act_fn[o], -1)
+    if reads is not None:
+        for name in ("act_right", "act_tag", "act_fn"):
+            reads.note(name, getattr(tables, name), o, fin_ow >= 0)
+    from_orig = torch.where(is_l, pos, pos - 1)
+    fpos_orig = fin_pos - 1
+    from2 = from_orig.clamp(0, M - 1)
+    to2 = (fpos_orig - right).clamp(0, M - 1)
+    has = fin_pos >= 0
+    skip_to = torch.where(has, torch.maximum(from_orig, fpos_orig - right),
+                          from_orig)
+    # the sequential visited scan (see the note in lexer.py:298-302)
+    vis = torch.zeros((B, M), dtype=torch.bool, device=x.device)
+    nv = torch.zeros(B, dtype=torch.int32, device=x.device)
+    for q in range(M):
+        v = nv == q
+        vis[:, q] = v
+        nv = torch.where(v, skip_to[:, q] + 2, nv)
+    emit = vis & valid & has & ((tag != 0) | (fn >= 0))
+    lane = ((tag + 1) | (from2 << 17) | (to2 << 24)
+            | ((fn >= 0).to(torch.int32) << 31))
+    # left compaction: stable order by (emitted ? pos : MAX)
+    key = torch.where(emit, pos, INT32_MAX)
+    skey, order = torch.sort(key, dim=1, stable=True)
+    svals = torch.where(skey != INT32_MAX, lane.gather(1, order), 0)
+    counts = emit.sum(dim=1, dtype=torch.int32)
+    return torch.cat([svals, counts[:, None],
+                      torch.zeros((B, 1), dtype=torch.int32, device=x.device)],
+                     dim=1)
+
+
+def _pass_dense_plain(tables, dnext, ow_perm, x, init, l_iw, r_iw, lw, n_f,
+                      n_a, reads=None):
+    fin_pos, fin_ow = _walk_dense_plain(tables, dnext, ow_perm, x, init, r_iw,
+                                        lw, n_f, n_a, reads)
+    return _emit_plain(tables, x, fin_pos, fin_ow, l_iw, r_iw, reads)
+
+
+def _pass_comb_plain(tables, x, init, l_iw, r_iw, lw, reads=None):
+    fin_pos, fin_ow = _walk_comb_plain(tables, x, init, r_iw, lw, reads)
+    return _emit_plain(tables, x, fin_pos, fin_ow, l_iw, r_iw, reads)
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _check_rows(tables, x, init, lw, out):
+    B, M = x.shape
+    if not 1 <= M <= MAX_ROW:
+        raise ValueError(f"rows of 1..{MAX_ROW} lanes only, got {M}")
+    if not 0 <= lw <= 4096:
+        raise ValueError(f"walk depth {lw} out of range")
+    if tables.act_right.numel() < 1:
+        raise ValueError("the grammar has no actions")
+    kernels.check(x, torch.int32, (B, M), "x")
+    kernels.check(init, torch.int32, (B, M), "init_lanes")
+    if out is None:
+        out = torch.empty((B, M + 2), dtype=torch.int32, device=x.device)
+    kernels.check(out, torch.int32, (B, M + 2), "out")
+    return out
+
+
+def _plain_into(res, out):
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def wp_subword_pass_dense(tables: LexerDeviceTables, dnext, ow_perm,
+                          x: torch.Tensor, init_lanes: torch.Tensor,
+                          l_iw: int, r_iw: int, lw: int, n_f: int, n_a: int,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """The sub-token pass with the one-gather dense walk (K7).
+
+    x: int32 (B, M) packed ``[L w R]`` unit rows, -1 padding; init_lanes:
+    int32 (B, M) PERMUTED initial state of each lane's unit.  Returns (or
+    writes into ``out``) int32 (B, M + 2): left-compacted lanes, the match
+    count, a zero column.  Replaces lexer.py::wp_subword_pass_dense."""
+    if not kernels.on_card(x):
+        return _plain_into(_pass_dense_plain(
+            tables, dnext, ow_perm, x, init_lanes, l_iw, r_iw, lw, n_f, n_a),
+            out)
+    out = _check_rows(tables, x, init_lanes, lw, out)
+    kernels.check(dnext, torch.int32, (dnext.numel(),), "dnext")
+    kernels.check(ow_perm, torch.int32, (ow_perm.numel(),), "ow_perm")
+    B, M = x.shape
+    if B:
+        kernels.launch(
+            "wp_subword_dense", x.device,
+            dnext.data_ptr(), dnext.numel(), ow_perm.data_ptr(),
+            ow_perm.numel(), n_f, n_a, tables.act_right.data_ptr(),
+            tables.act_tag.data_ptr(), tables.act_fn.data_ptr(),
+            tables.act_right.numel(), x.data_ptr(), init_lanes.data_ptr(),
+            B, M, l_iw, r_iw, lw, tables.max_token_length, out.data_ptr(),
+        )
+    return out
+
+
+def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
+                    init_lanes: torch.Tensor, l_iw: int, r_iw: int, lw: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """The sub-token pass with the comb walk (K8): the same contract as
+    :func:`wp_subword_pass_dense`, with init_lanes in the comb's own state
+    numbering.  Replaces lexer.py::wp_subword_pass."""
+    if not kernels.on_card(x):
+        return _plain_into(_pass_comb_plain(tables, x, init_lanes, l_iw, r_iw,
+                                            lw), out)
+    out = _check_rows(tables, x, init_lanes, lw, out)
+    B, M = x.shape
+    if B:
+        kernels.launch(
+            "wp_subword_comb", x.device,
+            tables.base.data_ptr(), tables.owner.data_ptr(),
+            tables.nxt.data_ptr(), tables.final.data_ptr(),
+            tables.moore_ow.data_ptr(), tables.base.numel(), tables.n_slots,
+            tables.act_right.data_ptr(), tables.act_tag.data_ptr(),
+            tables.act_fn.data_ptr(), tables.act_right.numel(),
+            x.data_ptr(), init_lanes.data_ptr(), B, M, l_iw, r_iw, lw,
+            tables.max_token_length, out.data_ptr(),
+        )
+    return out

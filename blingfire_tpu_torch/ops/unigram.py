@@ -159,35 +159,53 @@ def walk_depth(tables: UnigramDeviceTables, lw: int | None) -> int:
 # ------------------------------------------------------------------ K5 walk
 
 
-def walk_step(tables: UnigramDeviceTables, state, c):
+def walk_step(tables: UnigramDeviceTables, state, c, reads=None):
     """One lockstep transition of every lane (unigram.py:175-205), every
     gather clamped as XLA clamps it.  Returns (next state, ow to add,
-    final)."""
+    final).  ``reads`` (a ``kernels.Reads``) notes the entries it reads."""
+    live = (state >= 0) & (c >= 0)
+    if reads is not None:
+        reads.step(live)
     if tables.dense is not None:
         dense = tables.dense
         flat = (state.clamp(min=0).long() * tables.n_iws
                 + c.clamp(min=0).long()).clamp(0, dense.numel() - 1)
-        e = torch.where((state >= 0) & (c >= 0), dense[flat], 0)
+        e = torch.where(live, dense[flat], 0)
+        if reads is not None:
+            reads.note("dense", dense, flat, live)
         ns = ((e >> 1) & 0x7FFF) - 1
         return ns, torch.where(e != 0, e >> 16, 0), (e & 1) == 1
     s_safe = state.clamp(min=0).long()
     slot = (tables.base[s_safe] + c.clamp(min=0)).clamp(0, tables.n_slots - 1).long()
+    if reads is not None:
+        reads.note("base", tables.base, s_safe, live)
     if tables.wide_a is not None:
         ea = tables.wide_a[slot]
         eb = tables.wide_b[slot]
-        hit = ((ea & 0x1FFFF) == state) & (state >= 0) & (c >= 0)
+        hit = ((ea & 0x1FFFF) == state) & live
+        if reads is not None:
+            reads.note("wide_a", tables.wide_a, slot, live)
+            reads.note("wide_b", tables.wide_b, slot, hit)
         ns = torch.where(hit, (eb & 0x1FFFF) - 1, -1)
         ow = ((ea >> 18) & 0x3FFF) | ((eb >> 17) << 14)
         return ns, torch.where(hit, ow, 0), hit & (((ea >> 17) & 1) == 1)
-    hit = (tables.owner[slot] == state) & (state >= 0) & (c >= 0)
+    hit = (tables.owner[slot] == state) & live
     ns = torch.where(hit, tables.nxt[slot], -1)
     n_states = tables.final.numel()
-    fin = (ns >= 0) & tables.final[ns.clamp(0, n_states - 1).long()]
+    ns_safe = ns.clamp(0, n_states - 1).long()
+    fin = (ns >= 0) & tables.final[ns_safe]
+    if reads is not None:
+        reads.note("owner", tables.owner, slot, live)
+        for name in ("nxt", "ow"):
+            reads.note(name, getattr(tables, name), slot, hit)
+        reads.note("final", tables.final, ns_safe, ns >= 0)
     return ns, torch.where(hit, tables.ow[slot], 0), fin
 
 
-def _walk_plain(tables: UnigramDeviceTables, x_iw, lengths, L: int):
-    """Plain version of K5: the WALK of unigram.py:164-213."""
+def _walk_plain(tables: UnigramDeviceTables, x_iw, lengths, L: int,
+                reads=None):
+    """Plain version of K5: the WALK of unigram.py:164-213; ``reads`` as
+    in :func:`walk_step`."""
     B, N = x_iw.shape
     dev = x_iw.device
     i32 = torch.int32
@@ -199,9 +217,11 @@ def _walk_plain(tables: UnigramDeviceTables, x_iw, lengths, L: int):
     sum_ow = torch.zeros((B, N), dtype=i32, device=dev)
     keys, scores = [], []
     for d in range(L):
-        ns, ow, fin = walk_step(tables, state, x_pad[:, d : d + N])
+        ns, ow, fin = walk_step(tables, state, x_pad[:, d : d + N], reads)
         sum_ow = sum_ow + ow.to(i32)
         key = sum_ow.clamp(0, nkeys - 1)
+        if reads is not None:
+            reads.note("scores_tab", tables.scores_tab, key, fin)
         keys.append(torch.where(fin, key, -1).to(i32))
         scores.append(torch.where(fin, tables.scores_tab[key.long()], NEG_INF))
         state = ns.to(i32)

@@ -1,7 +1,9 @@
 """Corpus tokenization entry point: port of blingfire_tpu/runtime/host.py
 (SpTokenizer: __init__, _compute_chunk_safe, _native_units_ok,
 _fallback_ids, _patch_fallbacks, encode_corpus_flat, the native-units
-branch of encode_batch; _batches_by_bytes and _max_token_len).
+branch of encode_batch; _batches_by_bytes and _max_token_len), with the
+batch pipeline and the splice of fallback documents that it shares with
+runtime/wp_hybrid.py (``run_pipeline``, ``splice_docs``).
 
 This port serves chunk-safe byte/char BPE and unigram-LM models through the
 unique-unit device path (runtime/dedup.py).  Not ported yet, and raising
@@ -140,23 +142,7 @@ class SpTokenizer:
             else:
                 repl[k] = self._fallback_ids(d, unk_id)
                 c.fallback_docs += 1
-        cnt = np.diff(bounds)
-        for k, v in repl.items():
-            cnt[k] = len(v)
-        nb = np.zeros(len(bounds), np.int64)
-        np.cumsum(cnt, out=nb[1:])
-        out = np.empty(int(nb[-1]), np.int32)
-        ks = sorted(repl)
-        prev = 0
-        for k in ks:
-            if k > prev:  # untouched run [prev, k): counts unchanged
-                out[nb[prev] : nb[k]] = ids[bounds[prev] : bounds[k]]
-            out[nb[k] : nb[k + 1]] = repl[k]
-            prev = k + 1
-        n = len(cnt)
-        if prev < n:
-            out[nb[prev] : nb[n]] = ids[bounds[prev] : bounds[n]]
-        return out, nb
+        return splice_docs(ids, bounds, repl)
 
     def encode_corpus_flat(
         self,
@@ -178,14 +164,15 @@ class SpTokenizer:
         c = counters or metrics.global_counters()
         docs_b = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
         runner = self._unit_runner()
-        parts: list[tuple[np.ndarray, np.ndarray]] = []
-        inflight: list = []
         # cross-batch unit cache, fresh per call: later batches dispatch
         # only units never resolved before
         ucache = native.UnitCache()
 
-        def collect(entry):
-            chunk, state = entry
+        def dispatch(chunk):
+            state = runner.dispatch_docs(chunk, unk_id, cache=ucache)
+            return state, state[0].n_rows
+
+        def collect(chunk, state):
             with metrics.stage("collect", c):
                 ids, bounds, need, status = runner.collect_docs(state)
             if need.any():
@@ -194,38 +181,11 @@ class SpTokenizer:
                     ids, bounds = self._patch_fallbacks(
                         chunk, ids, bounds, need, status, unk_id, c
                     )
-            c.tokens_out += int(bounds[-1])
-            parts.append((ids, bounds))
+            return ids, bounds
 
-        for chunk in _batches_by_bytes(docs_b, batch_docs):
-            with metrics.stage("dispatch", c):
-                state = runner.dispatch_docs(chunk, unk_id, cache=ucache)
-                c.dispatched_rows += state[0].n_rows
-            c.docs_in += len(chunk)
-            c.batches += 1
-            inflight.append((chunk, state))
-            if len(inflight) > 2:
-                collect(inflight.pop(0))
-        while inflight:
-            collect(inflight.pop(0))
-        c.bytes_in += sum(map(len, docs_b))
+        out = run_pipeline(docs_b, batch_docs, dispatch, collect, c)
         c.cache_units = ucache.stats()["units"]
-
-        if len(parts) == 1:
-            return parts[0]
-        total = sum(len(i) for i, _b in parts)
-        ids = np.empty(total, np.int32)
-        bounds = np.empty(len(docs_b) + 1, np.int64)
-        bounds[0] = 0
-        t = 0
-        d = 0
-        for pi, pb in parts:
-            ids[t : t + len(pi)] = pi
-            nb = len(pb) - 1
-            bounds[d + 1 : d + 1 + nb] = pb[1:] + t
-            t += len(pi)
-            d += nb
-        return ids, bounds
+        return out
 
     def encode_batch(self, docs: list[bytes | str], unk_id: int = 0
                      ) -> list[list[int]]:
@@ -253,6 +213,70 @@ class SpTokenizer:
     def _encode_overflow(self, *args, **kwargs):
         raise NotImplementedError(
             "long-document chunking is not ported yet: " + ROADMAP_A5)
+
+
+def run_pipeline(docs_b: list[bytes], batch_docs: int, dispatch, collect,
+                 c) -> tuple[np.ndarray, np.ndarray]:
+    """A corpus through a path's batches, up to three in flight, so the
+    host work of one overlaps the device work of another.
+
+    ``dispatch(chunk)`` -> (state, rows dispatched), timed as the stage
+    "dispatch"; ``collect(chunk, state)`` -> the batch's flat (ids, bounds),
+    timing its own stages.  Returns the corpus's flat (ids, bounds) and
+    adds to the counters ``c``."""
+    parts: list[tuple[np.ndarray, np.ndarray]] = []
+    inflight: list = []
+
+    def finish(entry):
+        ids, bounds = collect(*entry)
+        c.tokens_out += int(bounds[-1])
+        parts.append((ids, bounds))
+
+    for chunk in _batches_by_bytes(docs_b, batch_docs):
+        with metrics.stage("dispatch", c):
+            state, n_rows = dispatch(chunk)
+        c.dispatched_rows += n_rows
+        c.docs_in += len(chunk)
+        c.batches += 1
+        inflight.append((chunk, state))
+        if len(inflight) > 2:
+            finish(inflight.pop(0))
+    while inflight:
+        finish(inflight.pop(0))
+    c.bytes_in += sum(map(len, docs_b))
+    if len(parts) == 1:
+        return parts[0]
+    ids = np.concatenate([i for i, _b in parts] or [np.zeros(0, np.int32)],
+                         dtype=np.int32)
+    bounds = np.zeros(len(docs_b) + 1, np.int64)
+    t = d = 0
+    for pi, pb in parts:
+        nb = len(pb) - 1
+        bounds[d + 1 : d + 1 + nb] = pb[1:] + t
+        t += len(pi)
+        d += nb
+    return ids, bounds
+
+
+def splice_docs(ids: np.ndarray, bounds: np.ndarray,
+                repl: dict[int, list[int]]) -> tuple[np.ndarray, np.ndarray]:
+    """Flat (ids, bounds) with document k's ids replaced by ``repl[k]``."""
+    cnt = np.diff(bounds)
+    for k, v in repl.items():
+        cnt[k] = len(v)
+    nb = np.zeros(len(bounds), np.int64)
+    np.cumsum(cnt, out=nb[1:])
+    out = np.empty(int(nb[-1]), np.int32)
+    prev = 0
+    for k in sorted(repl):
+        if k > prev:  # untouched run [prev, k): counts unchanged
+            out[nb[prev] : nb[k]] = ids[bounds[prev] : bounds[k]]
+        out[nb[k] : nb[k + 1]] = repl[k]
+        prev = k + 1
+    n = len(cnt)
+    if prev < n:
+        out[nb[prev] : nb[n]] = ids[bounds[prev] : bounds[n]]
+    return out, nb
 
 
 def _batches_by_bytes(

@@ -1,5 +1,5 @@
-"""Seeded gpt2-shaped byte-BPE and xlnet-shaped unigram-LM models and a
-corpus for the tests and chip_smoke.py.
+"""Seeded gpt2-shaped byte-BPE, xlnet-shaped unigram-LM and bert-shaped
+WordPiece models and a corpus for the tests and chip_smoke.py.
 
 Not on the main path.  The gpt2-shaped model is laid out as the dict
 compiler lays out gpt2 (compiler/dict.py::vocab_from_hf_gpt2): byte mode,
@@ -16,7 +16,9 @@ unigram LM with a charmap, laid out as xlnet is.  In both, every piece has
 ``▁`` only in first position, so the model is chunk-safe and takes the
 unique-unit device path.  The corpus draws Zipfian words from the same word
 list, adds rare words, punctuation and long punctuation runs, and includes
-the edge cases of tests/corpus.py (copied below).
+the edge cases of tests/corpus.py (copied below).  The bert-shaped
+WordPiece model (:func:`bert_shaped_model_bytes`) covers the corpus's word
+list with whole words, prefixes and ``##`` pieces.
 """
 
 from __future__ import annotations
@@ -384,3 +386,134 @@ def zipf_corpus(target_bytes: int, seed: int = 0) -> list[bytes]:
         i += n
         k += 1
     return docs
+
+
+BERT_VOCAB = 28996
+BERT_UNK = 100  # ids 0..99 are [PAD] and [unused1..99]; [UNK] is 100
+BERT_WHOLE_WORDS = 16000  # frequent words that are entries of their own
+# three rules at level 0: whitespace runs are ignored; runs of letters and
+# digits, and any other single character, are words that call the
+# sub-token function FnTokWord, whose body compile_wordpiece_model makes
+# from the vocabulary
+BERT_GRAMMAR = r"""
+< [\x20\x09\x0A\x0D\x0B\x0C\x00A0\x3000]+ > --> IGNORE
+< [a-zA-Z0-9\x00C0-\x024F]+ > --> WORD _call FnTokWord
+< [^\x20\x09\x0A\x0D\x0B\x0C\x00A0\x3000] > --> WORD _call FnTokWord
+"""
+BERT_TAGSET = {"WORD": 1, "IGNORE": 4, "FnTokWord": 5}
+BERT_FN = BERT_TAGSET["FnTokWord"]
+
+
+def _bert_alphabet() -> list[int]:
+    """ASCII and Latin-1 letters, and the characters of the edge cases;
+    whitespace, controls, × and ÷, and SMP characters (emoji, math
+    letters) stay out, so some words are [UNK]."""
+    import unicodedata
+
+    chars = set(range(0x21, 0x7F)) | (set(range(0xC0, 0x100)) - {0xD7, 0xF7})
+    for s in EDGE_CASES:
+        chars |= {ord(ch) for ch in s}
+    return sorted(c for c in chars if c < 0x10000 and c not in (0xD7, 0xF7)
+                  and not unicodedata.category(chr(c)).startswith(("C", "Z")))
+
+
+def bert_shaped_vocab(n: int = BERT_VOCAB, seed: int = 0) -> list[str]:
+    """``n`` vocabulary lines laid out as bert-base-cased's: [PAD],
+    [unused1..99], [UNK] (100), [CLS], [SEP], [MASK]; every character of
+    the alphabet alone and as a ``##`` piece; numbers 10..999 and ``##``
+    pairs of digits; the BERT_WHOLE_WORDS most frequent words of the
+    corpus's word list whole; then prefixes of 2-4 characters and ``##``
+    endings of 2-4 characters of every word, until ``n`` lines."""
+    lines = (["[PAD]"] + [f"[unused{i}]" for i in range(1, BERT_UNK)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    seen = set(lines)
+
+    def add(s: str) -> None:
+        if len(lines) < n and s not in seen:
+            seen.add(s)
+            lines.append(s)
+
+    alphabet = [chr(c) for c in _bert_alphabet()]
+    for c in alphabet:
+        add(c)
+    for c in alphabet:
+        add("##" + c)
+    for v in range(10, 1000):
+        add(str(v))
+    for v in range(100):
+        add(f"##{v:02d}")
+    words = [w.decode() for w in word_list(seed, CORPUS_WORDS)]
+    for w in words[:BERT_WHOLE_WORDS]:
+        add(w)
+    for w in words:
+        for k in (2, 3, 4):
+            if len(w) > k:
+                add(w[:k])
+                add("##" + w[-k:])
+        if len(lines) >= n:
+            break
+    assert len(lines) == n, f"only {len(lines)} vocabulary lines"
+    return lines
+
+
+def bert_shaped_model_bytes(n: int = BERT_VOCAB, seed: int = 0) -> bytes:
+    """Compiled .bin image of a bert-shaped WordPiece model: the vocabulary
+    of :func:`bert_shaped_vocab` (ids = line numbers, ``[UNK]`` = 100)
+    compiled into FnTokWord by the port's copy of
+    compiler/wordpiece.py::compile_wordpiece_model, under the three-rule
+    level-0 grammar BERT_GRAMMAR.  It stands in for bert_base_cased_tok.bin,
+    which is not in the repository."""
+    from .compiler.wordpiece import compile_wordpiece_model
+
+    return compile_wordpiece_model(bert_shaped_vocab(n, seed), BERT_GRAMMAR,
+                                   dict(BERT_TAGSET))
+
+
+def wp_edge_rows(l_iw: int, r_iw: int, map_raw, width: int = 128,
+                 n_random: int = 5, seed: int = 0):
+    """(x int32 (R, width), fn int32 (R, width)) of hand-made packed rows
+    for the WordPiece sub-token kernels.  ``x`` holds dense input weights
+    (``map_raw`` maps code points to them; an unmapped one becomes the
+    alphabet size), ``fn`` each lane's sub-function id (BERT_FN on a unit's
+    lanes, -1 elsewhere); the caller maps ``fn`` to initial states.  Rows:
+    units of length 0 ([L R]); all -1; four 30-symbol units, the last
+    ending at column width-1; an uncovered unit (an emoji, a ×) beside
+    covered ones; a 40-symbol unit; symbols without anchors; a unit whose
+    lanes have no initial state; seeded random rows of symbols, anchors,
+    padding and functions."""
+
+    def unit(word: str) -> list[int]:
+        return [l_iw] + [int(v) for v in map_raw(
+            np.array([ord(ch) for ch in word], np.int32))] + [r_iw]
+
+    def row(units, fns=None) -> tuple[np.ndarray, np.ndarray]:
+        x = np.full(width, -1, np.int32)
+        f = np.full(width, -1, np.int32)
+        o = 0
+        for i, u in enumerate(units):
+            x[o : o + len(u)] = u
+            f[o : o + len(u)] = BERT_FN if fns is None else fns[i]
+            o += len(u)
+        assert o <= width
+        return x, f
+
+    rows = [
+        row([[l_iw, r_iw]] * (width // 2)),
+        (np.full(width, -1, np.int32), np.full(width, -1, np.int32)),
+        row([unit("abcdefghijklmnopqrstuvwxyzabcd")] * (width // 32)),
+        row([unit("the"), unit("ab\U0001F642cd"), unit("a\u00d7b"),
+             unit("naïve")]),
+        row([unit("supercalifragilisticexpialidociousaaaaaa")]),
+        row([unit("hello")[1:-1], unit("world")]),
+        row([unit("hello"), unit("world")], fns=[-1, BERT_FN]),
+    ]
+    rng = np.random.default_rng(seed)
+    n_iws = int(map_raw(np.array([0x10FFFF], np.int32))[0])
+    for _ in range(n_random):
+        x = rng.integers(-1, n_iws + 1, width).astype(np.int32)
+        anchors = rng.random(width)
+        x[anchors < 0.08] = l_iw
+        x[anchors > 0.92] = r_iw
+        f = np.where(rng.random(width) < 0.9, BERT_FN, -1).astype(np.int32)
+        rows.append((x, f))
+    return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])

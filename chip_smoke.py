@@ -21,18 +21,38 @@ Phases, each of which must pass (any failure exits non-zero):
               with its charmap; its automaton's shape and table mode;
   7. main-u   the unigram path, as phase 4, over the same corpus: K5, K6 and
               K4 must each launch; sampled documents must equal the oracle;
-  8. kernels-u K5 unigram_walk and K6 unigram_viterbi against their plain
+  8. kernels-u K5 unigram_walk and K6 unigram_viterbi (and K4 on their
+              output) against their plain
               versions on the packed rows of all three regions of one
               uncached 4 MiB batch, in the dense, wide and comb table modes
-              (forced through the port's module constants); tolerance 0.
-Times per launch come from CUDA events after warm-up.  In the JSON line a
-kernel's "ms", "plain_ms" and "bound_ms" cover its launches over the three
-regions of one uncached 4 MiB batch on its path's main-path table mode
-(scatter_trie: one launch over the whole trie); "device_ms" is the
-profiler's device time for the same launches; "launches" is the count from
-its path's main run (pack_out_compact: both paths, by path in
-"launches_by_path").  The second-last line is the kernel table as JSON, the
-last line the device.  Imports nothing of JAX or of blingfire_tpu.
+              (forced through the port's module constants); tolerance 0;
+  9. model-w  a seeded bert-shaped WordPiece model (28,996 entries, [UNK] =
+              100) compiled by the port's copy of the lex compiler; its
+              automaton's size;
+ 10. main-w   the WordPiece hybrid as a user drives it:
+              WordPieceHybrid(model, device="cuda") (A, dense sub-grammar,
+              pack-safety) then encode_corpus_flat(docs, unk_id=100) over
+              the same corpus: K3 and K7 must launch; sampled documents
+              must equal the scalar LexerOracleApi;
+ 11. main-wc  the same entry point with the dense table declined (the
+              port's DENSE_MAX_ENTRIES forced below it) over the corpus's
+              first 4 MiB, the path of a sub-grammar too large for it: K8
+              must launch, and the ids equal main-w's;
+ 12. kernels-w K7 and K8 against their plain versions on the packed rows of
+              both unit-length classes (walk depth 18 and 42) of one
+              uncached 4 MiB batch, and K3 on the dense sub-grammar's CSR;
+              tolerance 0.
+Times per launch come from CUDA events after warm-up.  Each kernel is
+measured on each path that runs it (kernels.PATHS), over the regions (or
+length classes) of one uncached 4 MiB batch in that path's main-path table
+mode (scatter_trie: one launch over the whole table, the BPE trie or the
+dense WordPiece sub-grammar); "device_ms" is the profiler's device time for
+the same launches.  A byte bound charges the rows in and out once and each
+table entry the plain version reads once (kernels.Reads).  In the JSON line
+"by_path" holds each path's numbers and "launches" the count from that
+path's main runs; the kernel's own numbers are their sums (errors: the
+largest).  The second-last line is the kernel table as JSON, the last line
+the device.  Imports nothing of JAX or of blingfire_tpu.
 """
 
 from __future__ import annotations
@@ -55,27 +75,40 @@ CMP_BYTES = 4 << 20  # corpus prefix whose packed rows the kernels are held on
 ORACLE_DOCS = 500  # documents checked against the scalar oracle
 DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
 UNI_MODES = ("dense", "wide", "comb")
+# kernel -> (source, the TPU kernel it replaces on each path)
 SOURCES = {
     "scatter_trie": ("blingfire_tpu_torch/kernels/csrc/scatter_trie.cu",
-                     "blingfire_tpu/ops/bpe.py:161"),
+                     {"bpe": "blingfire_tpu/ops/bpe.py:161",
+                      "wordpiece": "blingfire_tpu/ops/lexer.py:179"}),
     "bpe_walk": ("blingfire_tpu_torch/kernels/csrc/bpe_walk.cu",
-                 "blingfire_tpu/ops/bpe.py:242"),
+                 {"bpe": "blingfire_tpu/ops/bpe.py:242"}),
     "bpe_resolve": ("blingfire_tpu_torch/kernels/csrc/bpe_resolve.cu",
-                    "blingfire_tpu/ops/bpe.py:340"),
+                    {"bpe": "blingfire_tpu/ops/bpe.py:340"}),
     "pack_out_compact": ("blingfire_tpu_torch/kernels/pack_triton.py",
-                         "blingfire_tpu/runtime/dedup.py:218"),
+                         {"bpe": "blingfire_tpu/runtime/dedup.py:218",
+                          "unigram": "blingfire_tpu/runtime/dedup.py:218"}),
     "unigram_walk": ("blingfire_tpu_torch/kernels/csrc/unigram_walk.cu",
-                     "blingfire_tpu/ops/unigram.py:164"),
+                     {"unigram": "blingfire_tpu/ops/unigram.py:164"}),
     "unigram_viterbi": ("blingfire_tpu_torch/kernels/csrc/unigram_viterbi.cu",
-                        "blingfire_tpu/ops/unigram.py:216"),
+                        {"unigram": "blingfire_tpu/ops/unigram.py:216"}),
+    "wp_subword_dense": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
+                         {"wordpiece": "blingfire_tpu/ops/lexer.py:246"}),
+    "wp_subword_comb": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
+                        {"wordpiece": "blingfire_tpu/ops/lexer.py:353"}),
 }
+WP_UNK = 100  # bert's [UNK]
+# the kernels the WordPiece main path launches (K8 runs only when the dense
+# table is declined: phase main-wc)
+WP_MAIN = ("scatter_trie", "wp_subword_dense")
 # profiler kernel names of each wrapper
 KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "bpe_resolve": ("bpe_resolve_kernel",),
                 "scatter_trie": ("fill_kernel", "scatter_kernel"),
                 "pack_out_compact": ("_pack_kernel",),
                 "unigram_walk": ("unigram_walk_kernel",),
-                "unigram_viterbi": ("unigram_viterbi_kernel",)}
+                "unigram_viterbi": ("unigram_viterbi_kernel",),
+                "wp_subword_dense": ("wp_subword_dense_kernel",),
+                "wp_subword_comb": ("wp_subword_comb_kernel",)}
 
 
 def check(cond, msg) -> None:
@@ -121,70 +154,41 @@ def _self_device_us(ev) -> float:
     return 0.0
 
 
-def profiled_device_ms(fn, names, reps: int = 5) -> dict:
-    """Profiler device ms per call of fn, summed over each wrapper's kernel
-    names."""
-    out = {k: None for k in names}
+def profiled_device_ms(fn, stats, reps: int = 5) -> None:
+    """Profiler device ms per call of fn into each (kernel, path) entry of
+    ``stats``, summed over the kernel's names."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         t_us = _self_device_us(ev)
-        for k in names:
+        for (k, _path), s in stats.items():
             if any(pt in ev.key for pt in KERNEL_NAMES[k]) and t_us > 0:
-                out[k] = (out[k] or 0.0) + t_us / 1e3 / reps
-    return out
+                s["device_ms"] = (s["device_ms"] or 0.0) + t_us / 1e3 / reps
 
 
-def new_stats(names) -> dict:
-    return {k: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0,
-                    library_ms=None) for k in names}
+def new_stats(names, path: str) -> dict:
+    """Measurements of each kernel on one path, keyed (kernel, path)."""
+    return {(k, path): dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0,
+                            library_ms=None, device_ms=None) for k in names}
 
 
-def live_gathers(tables, x, lengths, LW: int) -> int:
-    """Trie gathers the BPE walk needs on these rows (live lane-steps)."""
-    B, N = x.shape
-    pos = torch.arange(N, device=x.device)
-    pad = torch.full((B, LW + 1), -1, dtype=torch.int32, device=x.device)
-    xp = torch.cat([x, pad], 1)
-    state = torch.where((pos[None] < lengths[:, None]) & (x >= 0),
-                        tables.trie_root, -1).to(torch.int32)
-    trie = tables.trie_next
-    n = 0
-    for d in range(LW):
-        c = xp[:, d : d + N]
-        live = (state >= 0) & (c >= 0)
-        n += int(live.sum())
-        flat = (state.clamp(min=0).long() * tables.trie_a + c.clamp(min=0).long())
-        state = torch.where(live, trie[flat.clamp(0, trie.numel() - 1)], -1)
-    return n
+def reads():
+    from blingfire_tpu_torch.kernels import Reads
+
+    return Reads()
 
 
-def unigram_walk_work(uni_ops, tables, x, lengths, L: int) -> tuple[int, int]:
-    """(live lane-steps, finals) of the unigram walk on these rows."""
-    B, N = x.shape
-    pos = torch.arange(N, device=x.device)
-    pad = torch.full((B, L + 1), -1, dtype=torch.int32, device=x.device)
-    xp = torch.cat([x, pad], 1)
-    state = torch.where((pos[None] < lengths[:, None]) & (x >= 0), 0, -1)
-    live_n = fin_n = 0
-    for d in range(L):
-        c = xp[:, d : d + N]
-        live_n += int(((state >= 0) & (c >= 0)).sum())
-        state, _ow, fin = uni_ops.walk_step(tables, state.to(torch.int32), c)
-        fin_n += int(fin.sum())
-    return live_n, fin_n
-
-
-def run_main(tok, docs, label: str, kernels, metrics) -> dict:
-    """The path's main run after SpTokenizer init: encode_corpus_flat three
-    times (first, second, profiled); launch counts and peak memory from the
-    init and the first call only (the caller resets both before init)."""
+def run_main(tok, docs, label: str, kernels, metrics, **kw) -> dict:
+    """The path's main run after its entry point's init: encode_corpus_flat
+    three times (first, second, profiled; ``kw`` passed on); launch counts
+    and peak memory from the init and the first call only (the caller
+    resets both before init)."""
     n_bytes = sum(map(len, docs))
     c = metrics.Counters()
     t0 = time.perf_counter()
-    ids, bounds = tok.encode_corpus_flat(docs, counters=c)
+    ids, bounds = tok.encode_corpus_flat(docs, counters=c, **kw)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -198,7 +202,7 @@ def run_main(tok, docs, label: str, kernels, metrics) -> dict:
     # the same call again in the same process: kernels built and compiled
     c2 = metrics.Counters()
     t0 = time.perf_counter()
-    ids2, bounds2 = tok.encode_corpus_flat(docs, counters=c2)
+    ids2, bounds2 = tok.encode_corpus_flat(docs, counters=c2, **kw)
     t_enc2 = time.perf_counter() - t0
     check(np.array_equal(ids2, ids) and np.array_equal(bounds2, bounds),
           "a second call gave other ids")
@@ -209,7 +213,7 @@ def run_main(tok, docs, label: str, kernels, metrics) -> dict:
     # a third call under the profiler (CUDA activity only): device busy time
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tok.encode_corpus_flat(docs, counters=metrics.Counters())
+        tok.encode_corpus_flat(docs, counters=metrics.Counters(), **kw)
         torch.cuda.synchronize()
     t_enc3 = time.perf_counter() - t0
     busy = sum(_self_device_us(ev) for ev in prof.key_averages()) / 1e6
@@ -224,15 +228,16 @@ def run_main(tok, docs, label: str, kernels, metrics) -> dict:
     return dict(ids=ids, bounds=bounds, launches=launches, counters=c)
 
 
-def check_oracle(tok, docs, ids, bounds, edge, label: str) -> None:
-    """The edge cases and seeded sampled documents equal the scalar oracle."""
+def check_oracle(oracle_ids, docs, ids, bounds, edge, label: str) -> None:
+    """The edge cases and seeded sampled documents equal the scalar oracle
+    (``oracle_ids(doc)``: its ids of one document)."""
     rng = np.random.default_rng(0)
     sample = list(range(edge)) + list(
         rng.choice(np.arange(edge, len(docs)), ORACLE_DOCS - edge,
                    replace=False))
     t0 = time.perf_counter()
     for i in sample:
-        want = tok._oracle.text_to_ids(docs[i], unk_id=0)
+        want = oracle_ids(docs[i])
         got = ids[bounds[i] : bounds[i + 1]].tolist()
         check(got == want, f"{label}: doc {i}: ids differ from the oracle")
     log(f"[{label}] {len(sample)} sampled docs equal the oracle "
@@ -241,12 +246,7 @@ def check_oracle(tok, docs, ids, bounds, edge, label: str) -> None:
 
 def packed_regions(native, tok, docs, spm_iw, raw_bytes: bool, charmap, dev):
     """Packed rows of an uncached CMP_BYTES corpus prefix, by region."""
-    sub, tot = [], 0
-    for d in docs:
-        sub.append(d)
-        tot += len(d)
-        if tot >= CMP_BYTES:
-            break
+    sub = corpus_prefix(docs, CMP_BYTES)
     nu = native.units_analyze(sub, tok.n_doc, tok._sym2iw, spm_iw, raw_bytes,
                               False, charmap)
     R = nu.n_rows
@@ -268,7 +268,7 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         f"{[(len(x), lw, b) for x, _l, lw, b in regions]}")
     spm, unk, a_max = runner.spm_iw, 0, tok.a_max
     stats = new_stats(("scatter_trie", "bpe_walk", "bpe_resolve",
-                       "pack_out_compact"))
+                       "pack_out_compact"), "bpe")
 
     # K3 at the main path's shape: the whole CSR trie
     from blingfire_tpu_torch.ops.tables import build_trie_table_cached
@@ -278,19 +278,8 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
     ti = torch.from_numpy(np.asarray(edge_idx, np.int64)).to(dev)
     tv = torch.from_numpy(np.asarray(edge_val, np.int32)).to(dev)
     size = tables.trie_next.numel()
-    k3 = bpe_ops.scatter_trie(ti, tv, size)
-    p3 = bpe_ops._scatter_trie_plain(ti, tv, size)
-    torch.cuda.synchronize()
-    s = stats["scatter_trie"]
-    s["err"] = max_abs_err([(k3, p3), (k3, tables.trie_next)])
-    s["ms"] = cuda_ms(lambda: bpe_ops.scatter_trie(ti, tv, size), 20)
-    s["plain_ms"] = cuda_ms(lambda: bpe_ops._scatter_trie_plain(ti, tv, size), 20)
-    s["library_ms"] = cuda_ms(
-        lambda: torch.full((size,), -1, dtype=torch.int32, device=dev)
-        .index_put_((ti,), tv), 20)
-    s["bytes"] = ti.numel() * 12 + size * 4
-    s["ops"] = ti.numel()
-    del k3, p3
+    scatter_vs_plain(stats[("scatter_trie", "bpe")], bpe_ops, ti, tv, size,
+                     tables.trie_next, dev)
 
     for x, ln, lw, bounded in regions:
         B, N = x.shape
@@ -299,22 +288,23 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         ovf = tables.max_len > LW and not bounded
         # K1
         m_k, so_k = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw, bounded=bounded)
-        m_p, so_p = bpe_ops._walk_plain(tables, x, ln, spm, LW, ovf)
+        r = reads()
+        m_p, so_p = bpe_ops._walk_plain(tables, x, ln, spm, LW, ovf, reads=r)
         torch.cuda.synchronize()
-        s = stats["bpe_walk"]
+        s = stats[("bpe_walk", "bpe")]
         s["err"] = max(s["err"], max_abs_err([(m_k, m_p), (so_k, so_p)]))
         s["ms"] += cuda_ms(lambda: bpe_ops.bpe_walk(
             tables, x, ln, spm, lw=lw, bounded=bounded), 50)
         s["plain_ms"] += cuda_ms(lambda: bpe_ops._walk_plain(
             tables, x, ln, spm, LW, ovf), 5)
         s["bytes"] += B * N * 4 + B * 4 + LW * B * N * 4 + B * N \
-            + 4 * live_gathers(tables, x, ln, LW)
+            + r.table_bytes()
         s["ops"] += LW * B * N
         # K2 on the kernel's walk output
         r_k = bpe_ops.bpe_resolve(tables, m_k, so_k, x, ln, spm, unk, a_max)
         r_p = bpe_ops._resolve_plain(tables, m_k, so_k, x, ln, spm, unk, a_max)
         torch.cuda.synchronize()
-        s = stats["bpe_resolve"]
+        s = stats[("bpe_resolve", "bpe")]
         s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
         s["ms"] += cuda_ms(lambda: bpe_ops.bpe_resolve(
             tables, m_k, so_k, x, ln, spm, unk, a_max), 50)
@@ -329,12 +319,14 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         s["ops"] += LW * B * N + int((n_arcs * lg).sum()) + 2 * int(n_arcs.sum())
         # K4 on the kernel's resolve output
         ids_k, st_k, _e, cnt_k, fb_k = r_k
-        pack_vs_plain(stats["pack_out_compact"], dedup, ids_k, st_k, cnt_k, fb_k)
-        per = {k: round(stats[k]["ms"] - before[k], 5) for k in
-               ("bpe_walk", "bpe_resolve", "pack_out_compact")}
+        pack_vs_plain(stats[("pack_out_compact", "bpe")], dedup, ids_k, st_k,
+                      cnt_k, fb_k)
+        per = {k[0]: round(stats[k]["ms"] - before[k], 5) for k in stats
+               if k[0] != "scatter_trie"}
         log(f"[kernels] region rows={B} lw={lw} bounded={bounded}: walk, "
             f"resolve, pack equal their plain versions; fallback rows "
-            f"{int(fb_k.sum())}; ms per launch {per}")
+            f"{int(fb_k.sum())}; trie entries read {r.entries('trie_next')} "
+            f"in {r.steps} live lane-steps; ms per launch {per}")
 
     def once():
         bpe_ops.scatter_trie(ti, tv, size)
@@ -343,36 +335,55 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
             r = bpe_ops.bpe_resolve(tables, m, so, x, ln, spm, unk, a_max)
             dedup.pack_out_compact(r[0], r[1], r[3], r[4])
 
-    dev_ms = profiled_device_ms(once, stats)
-    log(f"[kernels] profiler device ms per work unit: {dev_ms}")
-    return stats, dev_ms
+    profiled_device_ms(once, stats)
+    log(f"[kernels] profiler device ms per work unit: "
+        f"{ {k[0]: s['device_ms'] for k, s in stats.items()} }")
+    return stats
 
 
-def pack_vs_plain(s, dedup, ids, st, cnt, fb, timed: bool = True) -> None:
+def scatter_vs_plain(s, bpe_ops, ti, tv, size: int, built, dev) -> None:
+    """K3 against its plain version and the table its path built, on one
+    path's CSR; its library call is torch.full(...).index_put_."""
+    k3 = bpe_ops.scatter_trie(ti, tv, size)
+    p3 = bpe_ops._scatter_trie_plain(ti, tv, size)
+    torch.cuda.synchronize()
+    s["err"] = max_abs_err([(k3, p3), (k3, built)])
+    del k3, p3
+    s["ms"] = cuda_ms(lambda: bpe_ops.scatter_trie(ti, tv, size), 20)
+    s["plain_ms"] = cuda_ms(lambda: bpe_ops._scatter_trie_plain(ti, tv, size), 20)
+    s["library_ms"] = cuda_ms(
+        lambda: torch.full((size,), -1, dtype=torch.int32, device=dev)
+        .index_put_((ti,), tv), 20)
+    s["bytes"] = ti.numel() * 12 + size * 4
+    s["ops"] = ti.numel()
+
+
+def pack_vs_plain(s, dedup, ids, st, cnt, fb) -> None:
     """K4 against its plain version on one region's segment output."""
     B, N = ids.shape
     o_k = dedup.pack_out_compact(ids, st, cnt, fb)
     o_p = dedup._pack_out_compact_plain(ids, st, cnt, fb)
     torch.cuda.synchronize()
     s["err"] = max(s["err"], max_abs_err([(o_k, o_p)]))
-    if timed:
-        s["ms"] += cuda_ms(lambda: dedup.pack_out_compact(ids, st, cnt, fb), 50)
-        s["plain_ms"] += cuda_ms(
-            lambda: dedup._pack_out_compact_plain(ids, st, cnt, fb), 50)
-        s["bytes"] += 2 * B * N * 4 + B * 4 + B + B * (N + 2) * 4
-        s["ops"] += B * N * 3
+    s["ms"] += cuda_ms(lambda: dedup.pack_out_compact(ids, st, cnt, fb), 50)
+    s["plain_ms"] += cuda_ms(
+        lambda: dedup._pack_out_compact_plain(ids, st, cnt, fb), 50)
+    s["bytes"] += 2 * B * N * 4 + B * 4 + B + B * (N + 2) * 4
+    s["ops"] += B * N * 3
 
 
-def unigram_kernels(tok, docs, native, uni_ops, dedup, pack_stats, dev):
-    """Phase 8: K5 and K6 against their plain versions in every region and
-    table mode; the stats of the main path's mode (dense) go to the JSON
-    line, the others to the log."""
+def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
+    """Phase 8: K5 and K6 (and K4 on their output) against their plain
+    versions in every region and table mode; the stats of the main path's
+    mode (dense) go to the JSON line, the others to the log."""
     regions = packed_regions(native, tok, docs, tok._unit_runner().spm_iw,
                              False, tok.seg.charmap, dev)
     log(f"[kernels-u] {sum(len(r[0]) for r in regions)} packed rows: regions "
         f"{[(len(x), lw, b) for x, _l, lw, b in regions]}")
     seg = tok.seg
     saved = (uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL)
+    fbs = [torch.zeros(len(x), dtype=torch.bool, device=dev)
+           for x, *_rest in regions]
     by_mode = {}
     for mode in UNI_MODES:
         uni_ops._DENSE_MAX_ENTRIES = 0 if mode != "dense" else saved[0]
@@ -384,32 +395,31 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, pack_stats, dev):
         finally:
             uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL = saved
         check(tables.mode == UNI_MODES.index(mode), f"{mode} mode not taken")
-        stats = new_stats(("unigram_walk", "unigram_viterbi"))
-        gather_bytes = {"dense": 4, "wide": 12, "comb": 17}[mode]
+        stats = new_stats(("unigram_walk", "unigram_viterbi",
+                           "pack_out_compact"), "unigram")
         for x, ln, lw, bounded in regions:
             B, N = x.shape
             lw_eff = lw if bounded else None
             L = uni_ops.walk_depth(tables, lw_eff)
             # K5
             mk, ms = uni_ops.unigram_walk(tables, x, ln, lw=lw_eff)
-            pk, ps = uni_ops._walk_plain(tables, x, ln, L)
+            r = reads()
+            pk, ps = uni_ops._walk_plain(tables, x, ln, L, reads=r)
             torch.cuda.synchronize()
-            s = stats["unigram_walk"]
+            s = stats[("unigram_walk", "unigram")]
             s["err"] = max(s["err"], max_abs_err([(mk, pk), (ms, ps)]))
             k_ms = cuda_ms(lambda: uni_ops.unigram_walk(tables, x, ln,
                                                         lw=lw_eff), 50)
             s["ms"] += k_ms
             s["plain_ms"] += cuda_ms(lambda: uni_ops._walk_plain(
                 tables, x, ln, L), 5)
-            live, fins = unigram_walk_work(uni_ops, tables, x, ln, L)
-            s["bytes"] += B * N * 4 + B * 4 + B * N * L * 8 \
-                + gather_bytes * live + 4 * fins
+            s["bytes"] += B * N * 4 + B * 4 + B * N * L * 8 + r.table_bytes()
             s["ops"] += B * N * L
             # K6 on the kernel's walk output
             r_k = uni_ops.unigram_viterbi(tables, mk, ms, ln, 0)
             r_p = uni_ops._viterbi_plain(tables, mk, ms, ln, 0)
             torch.cuda.synchronize()
-            s = stats["unigram_viterbi"]
+            s = stats[("unigram_viterbi", "unigram")]
             s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
             v_ms = cuda_ms(lambda: uni_ops.unigram_viterbi(
                 tables, mk, ms, ln, 0), 50)
@@ -421,37 +431,181 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, pack_stats, dev):
             s["bytes"] += B * N * L * 8 + B * 4 + 3 * B * N * 4 + B * 4 \
                 + 4 * n_tok
             s["ops"] += n_pos * (L + 1) * DF64_OPS
-            # K4 on the kernel's output: held to its plain version; its time
-            # stands in the BPE path's row
-            fb = torch.zeros(B, dtype=torch.bool, device=dev)
-            pack_vs_plain(pack_stats, dedup, r_k[0], r_k[1], r_k[3], fb,
-                          timed=False)
+            # K4 on the kernel's output
+            pack_vs_plain(stats[("pack_out_compact", "unigram")], dedup,
+                          r_k[0], r_k[1], r_k[3], torch.zeros(
+                              B, dtype=torch.bool, device=dev))
             log(f"[kernels-u] {mode} region rows={B} L={L} bounded={bounded}: "
-                f"walk and viterbi equal their plain versions; ms per launch "
-                f"walk {k_ms:.5f} viterbi {v_ms:.5f}; live lane-steps {live}, "
-                f"finals {fins}, tokens {n_tok}")
+                f"walk, viterbi and pack equal their plain versions; ms per "
+                f"launch walk {k_ms:.5f} viterbi {v_ms:.5f}; live lane-steps "
+                f"{r.steps}, table bytes read {r.table_bytes()}, tokens "
+                f"{n_tok}")
 
         def once():
-            for x, ln, lw, bounded in regions:
+            for (x, ln, lw, bounded), fb in zip(regions, fbs):
                 lw_eff = lw if bounded else None
                 mk, ms = uni_ops.unigram_walk(tables, x, ln, lw=lw_eff)
-                uni_ops.unigram_viterbi(tables, mk, ms, ln, 0)
+                r = uni_ops.unigram_viterbi(tables, mk, ms, ln, 0)
+                dedup.pack_out_compact(r[0], r[1], r[3], fb)
 
-        dev_ms = profiled_device_ms(once, stats)
-        for name, s in stats.items():
-            t_b, t_o = (s["bytes"] / HBM_BYTES_PER_S * 1e3,
-                        s["ops"] / SCALAR_OPS_PER_S * 1e3)
+        profiled_device_ms(once, stats)
+        for (name, _path), s in stats.items():
+            bound, bound_by = bound_of(s)
             log(f"[kernels-u] {mode} {name}: {s['ms']:.4f} ms, device "
-                f"{dev_ms[name]} ms, plain {s['plain_ms']:.4f} ms, bound "
-                f"{max(t_b, t_o):.5f} ms (bytes {t_b:.5f}, operations "
-                f"{t_o:.5f}), max_abs_err {s['err']}")
-        by_mode[mode] = (stats, dev_ms)
-    err = {k: max(by_mode[m][0][k]["err"] for m in UNI_MODES)
-           for k in ("unigram_walk", "unigram_viterbi")}
-    stats, dev_ms = by_mode["dense"]
-    for k in err:
-        stats[k]["err"] = err[k]
-    return stats, dev_ms
+                f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
+                f"{bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
+        by_mode[mode] = stats
+    stats = by_mode["dense"]
+    for k, s in stats.items():
+        s["err"] = max(by_mode[m][k]["err"] for m in UNI_MODES)
+    return stats
+
+
+def corpus_prefix(docs, n_bytes: int) -> list[bytes]:
+    """The corpus's first documents up to n_bytes (at least)."""
+    sub, tot = [], 0
+    for d in docs:
+        sub.append(d)
+        tot += len(d)
+        if tot >= n_bytes:
+            break
+    return sub
+
+
+def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
+    """Phase 12: K7 and K8 against their plain versions on both length
+    classes of one uncached 4 MiB batch, and K3 on the dense sub-grammar."""
+    nh, u_syms, u_soff, u_fn = hyb._analyze(corpus_prefix(docs, CMP_BYTES))
+    hyb._rt.BtlWpFree(nh)
+    n_units = len(u_soff) - 1
+    runs = []
+    for h, name in ((hyb, "wp_subword_dense"), (hyb_c, "wp_subword_comb")):
+        px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+        runs.append((h, name, px, pinit, class_rows))
+    check(len(runs[0][2]) >= 1000, f"only {len(runs[0][2])} packed rows")
+    check(np.array_equal(runs[0][2], runs[1][2]), "packed rows differ by mode")
+    log(f"[kernels-w] {n_units} unique units in {len(runs[0][2])} packed "
+        f"rows: classes (rows, lw) "
+        f"{[(hi - lo, lw) for lo, hi, lw in runs[0][4]]}")
+    stats = new_stats(("wp_subword_dense", "wp_subword_comb"), "wordpiece")
+
+    def plain(h, x, init, lw, r=None):
+        if h._dense is None:
+            return lexer_ops._pass_comb_plain(h.tables, x, init, h._l_iw,
+                                              h._r_iw, lw, reads=r)
+        dnext, ow_perm, _p, n_f, _n = h._dense
+        return lexer_ops._pass_dense_plain(h.tables, dnext, ow_perm, x, init,
+                                           h._l_iw, h._r_iw, lw, n_f,
+                                           h._n_iws, reads=r)
+
+    dev_rows = {}
+    for h, name, px, pinit, class_rows in runs:
+        s = stats[(name, "wordpiece")]
+        for lo, hi, lw in class_rows:
+            if hi <= lo:
+                continue
+            x = torch.from_numpy(px[lo:hi]).to(dev)
+            init = torch.from_numpy(pinit[lo:hi]).to(dev)
+            dev_rows.setdefault(name, []).append((x, init, lw))
+            B, M = x.shape
+            k = h._device_pass(x, init, lw)
+            r = reads()
+            p = plain(h, x, init, lw, r)
+            torch.cuda.synchronize()
+            s["err"] = max(s["err"], max_abs_err([(k, p)]))
+            k_ms = cuda_ms(lambda: h._device_pass(x, init, lw), 50)
+            s["ms"] += k_ms
+            s["plain_ms"] += cuda_ms(lambda: plain(h, x, init, lw), 2, warm=1)
+            # rows in (x, init) and out, and each table entry read once
+            s["bytes"] += B * M * 8 + B * (M + 2) * 4 + r.table_bytes()
+            s["ops"] += r.steps + B * M
+            log(f"[kernels-w] {name} class rows={B} lw={lw}: equal to the "
+                f"plain version; {k_ms:.5f} ms per launch; matches "
+                f"{int(k[:, M].sum())}; live lane-steps {r.steps}, table "
+                f"bytes read {r.table_bytes()}, actions reached "
+                f"{r.entries('act_tag')}")
+
+    def once():
+        for h, name, *_rest in runs:
+            for x, init, lw in dev_rows[name]:
+                h._device_pass(x, init, lw)
+
+    profiled_device_ms(once, stats)
+    # K3 at the dense sub-grammar's shape: its CSR from the host BFS
+    idx, vals, _ow, _perm, _n_f, n_reach = lexer_ops.dense_sub_edges(
+        hyb.comb, hyb.wbd.aut.moore_ow, hyb._inis)
+    ti = torch.from_numpy(idx).to(dev)
+    tv = torch.from_numpy(vals).to(dev)
+    size = n_reach * hyb._n_iws
+    k3 = new_stats(("scatter_trie",), "wordpiece")
+    scatter_vs_plain(k3[("scatter_trie", "wordpiece")], bpe_ops, ti, tv, size,
+                     hyb._dense[0], dev)
+    profiled_device_ms(lambda: bpe_ops.scatter_trie(ti, tv, size), k3)
+    s = k3[("scatter_trie", "wordpiece")]
+    log(f"[kernels-w] scatter_trie on the dense sub-grammar: {size} int32 "
+        f"from {ti.numel()} edges, {s['ms']:.4f} ms, device "
+        f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, library "
+        f"{s['library_ms']:.4f} ms, max_abs_err {s['err']}")
+    stats.update(k3)
+    return stats
+
+
+def sum_or_none(vals):
+    """The sum, or None when a value is missing."""
+    vals = list(vals)
+    return None if None in vals else sum(vals)
+
+
+def bound_of(s) -> tuple[float, str]:
+    t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = s["ops"] / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_rows(stats, path_runs, kernels) -> list[dict]:
+    """The kernels line: one row per kernel with its numbers on each path
+    (``stats`` keyed (kernel, path); ``path_runs``: (path, main run)) under
+    "by_path" and their sums at the top."""
+    rows = []
+    for name, route in kernels.ROUTES.items():
+        by_path = {}
+        for (k, path), s in stats.items():
+            if k != name:
+                continue
+            bound, bound_by = bound_of(s)
+            by_path[path] = {
+                "replaces": SOURCES[name][1][path],
+                "launches": sum(run["launches"].get(name, 0)
+                                for p, run in path_runs if p == path),
+                "max_abs_err": s["err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": s["library_ms"],
+                "device_ms": s["device_ms"]}
+        check(set(by_path) == {p for p in kernels.PATHS
+                               if name in kernels.PATHS[p]},
+              f"{name} was not measured on every path that runs it")
+        per = list(by_path.values())
+        tot = {k: sum(s[k] for (n, _p), s in stats.items() if n == name)
+               for k in ("bytes", "ops")}
+        bound, bound_by = bound_of(tot)
+        row = {"name": name, "route": route, "source": SOURCES[name][0],
+               "replaces": per[0]["replaces"]}
+        row.update({k: sum_or_none(v[k] for v in per) for k in (
+            "launches", "ms", "plain_ms", "library_ms", "device_ms")})
+        row.update(max_abs_err=max(v["max_abs_err"] for v in per),
+                   bound_ms=bound, bound_by=bound_by, by_path=by_path)
+        check(row["max_abs_err"] == 0.0,
+              f"{name} disagrees with its plain version")
+        check(row["launches"] > 0, f"{name} never launched on a main path")
+        rows.append(row)
+        for path, v in by_path.items():
+            log(f"[kernels] {name} on {path}: {v['ms']:.4f} ms vs plain "
+                f"{v['plain_ms']:.4f} ms, device {v['device_ms']} ms, bound "
+                f"{v['bound_ms']:.5f} ms ({v['bound_by']}), max_abs_err "
+                f"{v['max_abs_err']}, launches {v['launches']}")
+        log(f"[kernels] {name}: bound {bound:.5f} ms ({tot['bytes']} B, "
+            f"{tot['ops']} ops)")
+    return rows
 
 
 def main() -> int:
@@ -467,8 +621,11 @@ def main() -> int:
     from blingfire_tpu_torch.models.loader import load_bytes
     from blingfire_tpu_torch.ops import bpe as bpe_ops
     from blingfire_tpu_torch.ops import unigram as uni_ops
+    from blingfire_tpu_torch.ops import lexer as lexer_ops
     from blingfire_tpu_torch.runtime import dedup, metrics
     from blingfire_tpu_torch.runtime.host import SpTokenizer
+    from blingfire_tpu_torch.runtime.lexer import LexerOracleApi
+    from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -483,13 +640,14 @@ def main() -> int:
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     kernels.build()
-    log(f"[build] nvcc x{len(kernels.KERNELS)} + g++ in parallel: "
+    n_src = len({kernels.KERNELS[n][0] for n in kernels.KERNELS})
+    log(f"[build] nvcc x{n_src} + g++ x2 (host library, runtime) in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in kernels.KERNELS:
-        path = kernels.lib_path(name) + ".log"
-        if os.path.exists(path):
-            for ln in open(path).read().splitlines():
-                if "registers" in ln or "spill" in ln:
+    for path in sorted({kernels.lib_path(n) for n in kernels.KERNELS}):
+        name = os.path.basename(path).split(".")[0]
+        if os.path.exists(path + ".log"):
+            for ln in open(path + ".log").read().splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
                     log(f"[build] {name}: {ln.strip()}")
 
     # ----------------------------------------------------------- 3. model
@@ -520,11 +678,12 @@ def main() -> int:
     V = len(model.seg.i2info_ids)
     check(len(ids) and ids.min() >= -1 and ids.max() < V,
           f"ids out of range: {ids.min()}..{ids.max()}")
-    check_oracle(tok, docs, ids, bounds, n_edge, "main")
+    check_oracle(lambda d: tok._oracle.text_to_ids(d, unk_id=0), docs, ids,
+                 bounds, n_edge, "main")
     del ids, bounds
 
     # ------------------------------------------- 5. kernels vs plain versions
-    stats, dev_ms = bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev)
+    stats = bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev)
     del tok
 
     # --------------------------------------------------------- 6. model-u
@@ -554,36 +713,82 @@ def main() -> int:
     ids, bounds = main_u["ids"], main_u["bounds"]
     check(ids.min() >= 0 and ids.max() < len(model_u.seg.i2info_ids) + 3,
           f"ids out of range: {ids.min()}..{ids.max()}")
-    check_oracle(tok_u, docs, ids, bounds, n_edge, "main-u")
+    check_oracle(lambda d: tok_u._oracle.text_to_ids(d, unk_id=0), docs, ids,
+                 bounds, n_edge, "main-u")
     del ids, bounds
 
     # -------------------------------------------------------- 8. kernels-u
-    s_u, d_u = unigram_kernels(tok_u, docs, native, uni_ops, dedup,
-                               stats["pack_out_compact"], dev)
-    stats.update(s_u)
-    dev_ms.update(d_u)
+    stats.update(unigram_kernels(tok_u, docs, native, uni_ops, dedup, dev))
+    del tok_u
 
-    rows = []
-    for name, route in kernels.ROUTES.items():
-        s = stats[name]
-        by_path = {p: runs["launches"].get(name, 0)
-                   for p, runs in (("bpe", main), ("unigram", main_u))
-                   if name in kernels.PATHS[p]}
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = s["ops"] / SCALAR_OPS_PER_S * 1e3
-        check(s["err"] == 0.0, f"{name} disagrees with its plain version")
-        rows.append({
-            "name": name, "route": route, "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": s["library_ms"], "device_ms": dev_ms[name],
-        })
-        log(f"[kernels] {name}: {s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} "
-            f"ms, bound {max(t_bytes, t_ops):.5f} ms ({s['bytes']} B, "
-            f"{s['ops']} ops), max_abs_err {s['err']}")
+    # --------------------------------------------------------- 9. model-w
+    t0 = time.perf_counter()
+    blob_w = testing.bert_shaped_model_bytes()
+    model_w = load_bytes(blob_w)
+    wbd = model_w.wbd
+    log(f"[model-w] bert-shaped WordPiece: {testing.BERT_VOCAB} entries, "
+        f"{len(blob_w)} B image, {wbd.aut.n_states} states, "
+        f"{len(wbd.acts)} actions, largest tag "
+        f"{max(int(a[2]) for a in wbd.acts.values())}, max token length "
+        f"{wbd.max_token_length}, {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------- 10. main-w
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hyb = WordPieceHybrid(model_w, device="cuda")
+    torch.cuda.synchronize()
+    check(hyb.available() and hyb._dense is not None,
+          "the bert-shaped model is not pack-safe or not dense")
+    dnext, _ow, _perm, n_f, n_reach = hyb._dense
+    log(f"[model-w] WordPieceHybrid init {time.perf_counter() - t0:.3f} s: A "
+        f"{hyb._n_iws}, pack-safe {hyb.available()}, dense sub-grammar "
+        f"{dnext.numel()} int32 ({n_reach} reachable states, {n_f} finals "
+        f"first)")
+    main_w = run_main(hyb, docs, "main-w", kernels, metrics, unk_id=WP_UNK)
+    for name in WP_MAIN:
+        check(main_w["launches"].get(name, 0) > 0,
+              f"kernel {name} never launched on the WordPiece path")
+    ids, bounds = main_w["ids"], main_w["bounds"]
+    check(ids.min() >= 0 and ids.max() < testing.BERT_VOCAB,
+          f"ids out of range: {ids.min()}..{ids.max()}")
+    oracle_w = LexerOracleApi(model_w)
+    check_oracle(lambda d: oracle_w.text_to_ids(d, unk_id=WP_UNK), docs, ids,
+                 bounds, n_edge, "main-w")
+
+    # --------------------------------------------------------- 11. main-wc
+    sub = corpus_prefix(docs, CMP_BYTES)
+    saved = lexer_ops.DENSE_MAX_ENTRIES
+    kernels.reset_launches()
+    lexer_ops.DENSE_MAX_ENTRIES = -1
+    try:
+        hyb_c = WordPieceHybrid(model_w, device="cuda")
+    finally:
+        lexer_ops.DENSE_MAX_ENTRIES = saved
+    check(hyb_c._dense is None, "the dense table was not declined")
+    c_c = metrics.Counters()
+    t0 = time.perf_counter()
+    ids_c, bounds_c = hyb_c.encode_corpus_flat(sub, unk_id=WP_UNK,
+                                               counters=c_c)
+    t_c = time.perf_counter() - t0
+    main_wc = {"launches": dict(kernels.launches)}
+    log(f"[main-wc] encode_corpus_flat (comb pass) over {len(sub)} docs, "
+        f"{sum(map(len, sub))} B: {t_c:.3f} s, {c_c.dispatched_rows} rows, "
+        f"{c_c.fallback_docs} fallback docs; launches {main_wc['launches']}")
+    check(main_wc["launches"].get("wp_subword_comb", 0) > 0,
+          "kernel wp_subword_comb never launched")
+    n_sub = len(sub)
+    check(np.array_equal(bounds_c, bounds[: n_sub + 1])
+          and np.array_equal(ids_c, ids[: bounds[n_sub]]),
+          "the comb pass gave other ids than the dense one")
+    del ids, bounds, ids_c, bounds_c
+
+    # ------------------------------------------------------- 12. kernels-w
+    stats.update(wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev))
+
+    path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
+                 ("wordpiece", main_wc))
+    rows = kernel_rows(stats, path_runs, kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ from blingfire_tpu.models.loader import load_bytes as jax_load_bytes
 from blingfire_tpu.ops import bpe as jax_bpe
 from blingfire_tpu.ops.tables import build_comb_table as jax_comb
 from blingfire_tpu.ops.tables import build_trie_table as jax_trie
-from blingfire_tpu_torch import native, testing
+from blingfire_tpu_torch import kernels, native, testing
 from blingfire_tpu_torch.formats.consts import SP_DELIMITER, TokAlgo
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.ops import bpe
@@ -85,6 +85,25 @@ def test_plain_walk_matches_jax(region, lw, bounded):
     np.testing.assert_array_equal(p_so.numpy(), np.asarray(so))
     if not bounded:
         assert p_so.any(), "unbounded region should see live states at its cap"
+
+
+@pytest.mark.parametrize("region,lw,bounded", REGIONS)
+def test_plain_walk_notes_the_trie_entries_it_reads(region, lw, bounded):
+    """kernels.Reads, which chip_smoke's byte bound of K1 counts: the walk is
+    unchanged, every match comes from a live step, and a trie entry read
+    twice counts once."""
+    tok, _jt, spm_iw, x, ln = _region(TokAlgo.BPE_OPT, region)
+    LW = bpe._walk_depth(tok.tables, lw)
+    ovf = tok.tables.max_len > LW and not bounded
+    args = (tok.tables, torch.from_numpy(x), torch.from_numpy(ln), spm_iw, LW,
+            ovf)
+    r = kernels.Reads()
+    got, want = bpe._walk_plain(*args, reads=r), bpe._walk_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    n_match = int((got[0] >= 0).sum())
+    assert 0 < n_match <= r.steps and 0 < r.entries("trie_next") < r.steps
+    assert r.table_bytes() == 4 * r.entries("trie_next")
 
 
 def _jax_resolve(monkeypatch, gather: str, jt, m_pack, m_rank, so, x, ln,

@@ -16,7 +16,8 @@ from blingfire_tpu.runtime.host import SpTokenizer as JaxSpTokenizer
 from blingfire_tpu_torch import testing
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.runtime import metrics
-from blingfire_tpu_torch.runtime.host import SpTokenizer
+from blingfire_tpu_torch.runtime.host import (SpTokenizer, run_pipeline,
+                                              splice_docs)
 
 
 def _docs():
@@ -88,3 +89,42 @@ def test_models_outside_the_slice_raise():
     assert not tok.is_bpe and not tok._chunk_safe
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tok.encode_corpus_flat([b"a b"])
+
+
+@pytest.mark.parametrize("n_docs", [0, 1, 7, 40])
+def test_run_pipeline_joins_batches_in_order(n_docs):
+    """The batch pipeline both entry points share: every batch dispatched
+    and collected once, in order, with up to three in flight, and the parts
+    joined into one flat (ids, bounds)."""
+    docs = [bytes(range(97, 97 + i % 5)) for i in range(n_docs)]
+    flights, events = [], []
+
+    def dispatch(chunk):
+        flights.append(len(flights) - sum(e == "c" for e in events))
+        events.append("d")
+        return chunk, len(chunk)
+
+    def collect(chunk, state):
+        assert state is chunk
+        events.append("c")
+        ids = np.frombuffer(b"".join(chunk), np.uint8).astype(np.int32)
+        return ids, np.concatenate([[0], np.cumsum([len(d) for d in chunk])])
+
+    c = metrics.Counters()
+    ids, bounds = run_pipeline(docs, 3, dispatch, collect, c)
+    want = [list(d) for d in docs]
+    assert [ids[bounds[i] : bounds[i + 1]].tolist() for i in range(n_docs)] == want
+    assert ids.dtype == np.int32 and bounds.tolist()[:1] == [0]
+    assert len(bounds) == n_docs + 1 and c.tokens_out == len(ids)
+    assert c.batches == events.count("c") == -(-n_docs // 3)
+    assert c.docs_in == c.dispatched_rows == n_docs and max(flights + [0]) <= 2
+
+
+def test_splice_docs_replaces_spans():
+    ids = np.arange(10, dtype=np.int32)
+    bounds = np.array([0, 2, 2, 5, 10])
+    out, nb = splice_docs(ids, bounds, {0: [7], 2: [], 3: [1, 2, 3, 4, 5, 6]})
+    assert [out[nb[i] : nb[i + 1]].tolist() for i in range(4)] == [
+        [7], [], [], [1, 2, 3, 4, 5, 6]]
+    out, nb = splice_docs(ids, bounds, {1: [9, 9]})
+    assert out.tolist() == [0, 1, 9, 9, 2, 3, 4, 5, 6, 7, 8, 9]

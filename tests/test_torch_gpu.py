@@ -1,6 +1,7 @@
 """The port's kernels against their plain versions on the card: the four of
-the byte-BPE path, and K5 unigram_walk and K6 unigram_viterbi in every row
-region and table mode.
+the byte-BPE path, K5 unigram_walk and K6 unigram_viterbi in every row
+region and table mode, and the WordPiece pass (K7 dense, K8 comb, K3 on the
+dense sub-grammar).
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,10 +20,11 @@ from corpus import full_corpus
 
 from blingfire_tpu_torch import kernels, native, testing
 from blingfire_tpu_torch.models.loader import load_bytes
-from blingfire_tpu_torch.ops import bpe, unigram
+from blingfire_tpu_torch.ops import bpe, lexer, unigram
 from blingfire_tpu_torch.ops.tables import build_comb_table
 from blingfire_tpu_torch.runtime import dedup
 from blingfire_tpu_torch.runtime.host import SpTokenizer
+from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
 pytestmark = pytest.mark.gpu
 REGIONS = [(0, 8, True), (1, 16, True), (2, 16, False)]
@@ -175,4 +178,88 @@ def test_unigram_encode_corpus_flat_on_the_card_matches_cpu():
     ids, bounds = gpu.encode_corpus_flat(_uni_docs(), batch_docs=64)
     assert all(kernels.launches[k] > 0 for k in kernels.PATHS["unigram"])
     cids, cbounds = cpu.encode_corpus_flat(_uni_docs(), batch_docs=64)
+    assert (ids == cids).all() and (bounds == cbounds).all()
+
+
+def _wp_docs():
+    return [d.encode("utf-8") for d in full_corpus()] + \
+        testing.zipf_corpus(100_000)[len(testing.EDGE_CASES):][:200]
+
+
+@functools.lru_cache(maxsize=None)
+def _wp(comb: bool, device: str) -> WordPieceHybrid:
+    saved = lexer.DENSE_MAX_ENTRIES
+    lexer.DENSE_MAX_ENTRIES = -1 if comb else saved
+    try:
+        blob = testing.bert_shaped_model_bytes(2000)
+        return WordPieceHybrid(load_bytes(blob), device=device)
+    finally:
+        lexer.DENSE_MAX_ENTRIES = saved
+
+
+def _wp_kernel_matches_plain(h, x, init, lw):
+    """One launch of the hybrid's kernel against its plain version, both on
+    the card."""
+    name = "wp_subword_comb" if h._dense is None else "wp_subword_dense"
+    xd, idv = torch.from_numpy(x).cuda(), torch.from_numpy(init).cuda()
+    n = kernels.launches[name]
+    got = h._device_pass(xd, idv, lw)
+    assert kernels.launches[name] == n + 1
+    if h._dense is None:
+        want = lexer._pass_comb_plain(h.tables, xd, idv, h._l_iw, h._r_iw, lw)
+    else:
+        dnext, ow_perm, _p, n_f, _n = h._dense
+        want = lexer._pass_dense_plain(h.tables, dnext, ow_perm, xd, idv,
+                                       h._l_iw, h._r_iw, lw, n_f, h._n_iws)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("cls", [0, 1], ids=["lw18", "lw42"])
+@pytest.mark.parametrize("comb", [False, True], ids=["dense", "comb"])
+def test_wp_kernels_match_plain(comb, cls):
+    _need_cuda()
+    h = _wp(comb, "cuda")
+    nh, u_syms, u_soff, u_fn = h._analyze(_wp_docs())
+    h._rt.BtlWpFree(nh)
+    px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+    lo, hi, lw = class_rows[cls]
+    got = _wp_kernel_matches_plain(h, px[lo:hi], pinit[lo:hi], lw)
+    assert int(got[:, 128].sum()) > 0
+
+
+@pytest.mark.parametrize("comb", [False, True], ids=["dense", "comb"])
+def test_wp_kernels_on_edge_rows(comb):
+    _need_cuda()
+    h = _wp(comb, "cuda")
+    x, fn = testing.wp_edge_rows(h._l_iw, h._r_iw, h._map_raw)
+    init = np.where(fn >= 0, h._fn2ini[np.clip(fn, 0, len(h._fn2ini) - 1)],
+                    -1).astype(np.int32)
+    for lw in (18, 42):
+        _wp_kernel_matches_plain(h, x, init, lw)
+
+
+def test_scatter_trie_on_the_dense_sub_grammar():
+    _need_cuda()
+    h = _wp(False, "cpu")
+    idx, vals, _ow, _perm, _nf, n_reach = lexer.dense_sub_edges(
+        h.comb, h.wbd.aut.moore_ow, h._inis)
+    size = n_reach * h._n_iws
+    ti, tv = torch.from_numpy(idx).cuda(), torch.from_numpy(vals).cuda()
+    got = bpe.scatter_trie(ti, tv, size)
+    assert torch.equal(got, bpe._scatter_trie_plain(ti, tv, size))
+    assert torch.equal(got.cpu(), h._dense[0])
+
+
+def test_wordpiece_encode_corpus_flat_on_the_card_matches_cpu():
+    _need_cuda()
+    blob = testing.bert_shaped_model_bytes(2000)
+    kernels.reset_launches()
+    gpu = WordPieceHybrid(load_bytes(blob))
+    ids, bounds = gpu.encode_corpus_flat(_wp_docs(), unk_id=100,
+                                         batch_docs=64)
+    assert kernels.launches["scatter_trie"] > 0
+    assert kernels.launches["wp_subword_dense"] > 0
+    cids, cbounds = _wp(False, "cpu").encode_corpus_flat(
+        _wp_docs(), unk_id=100, batch_docs=64)
     assert (ids == cids).all() and (bounds == cbounds).all()

@@ -21,7 +21,7 @@ from blingfire_tpu.models.loader import load_bytes as jax_load_bytes
 from blingfire_tpu.ops import dfloat as jax_dfloat
 from blingfire_tpu.ops import tables as jax_tables
 from blingfire_tpu.ops import unigram as jax_unigram
-from blingfire_tpu_torch import native, testing
+from blingfire_tpu_torch import kernels, native, testing
 from blingfire_tpu_torch.formats.consts import SP_DELIMITER
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.ops import dfloat, unigram
@@ -187,3 +187,25 @@ def test_segment_is_walk_then_viterbi():
     for s, v in zip(seg, unigram.unigram_viterbi(tok.tables, m_key, m_score,
                                                  ln, 0)):
         assert torch.equal(s, v)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_walk_notes_the_entries_it_reads(monkeypatch, mode):
+    """kernels.Reads, which chip_smoke's byte bound of K5 counts, in every
+    table mode: the walk is unchanged, every mode takes the dense walk's
+    live steps and reads its score entries, and an entry counts once."""
+    blob, tok, regions = _model()
+    x, ln = (torch.from_numpy(v) for v in regions[1])
+    L = unigram.walk_depth(tok.tables, 16)
+    rd = kernels.Reads()
+    unigram._walk_plain(tok.tables, x, ln, L, reads=rd)
+    _force_mode(monkeypatch, mode)
+    _jt, pt = _both_tables(blob, tok.max_token_len)
+    r = kernels.Reads()
+    for g, w in zip(unigram._walk_plain(pt, x, ln, L, reads=r),
+                    unigram._walk_plain(pt, x, ln, L)):
+        assert torch.equal(g, w)
+    assert r.steps == rd.steps > 0
+    assert r.entries("scores_tab") == rd.entries("scores_tab") > 0
+    walked = {"dense": "dense", "wide": "wide_a", "comb": "owner"}[mode]
+    assert 0 < r.entries(walked) <= r.steps
