@@ -53,6 +53,9 @@ KERNELS = {
     "wp_subword_comb": ("wp_subword.cu", "bf_wp_subword_comb",
                         [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                          _I, _I, _I, _I, _I, _I, _P]),
+    "lexer_pass": ("lexer_pass.cu", "bf_lexer_pass",
+                   [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                    _P, _I, _I, _P]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -73,6 +76,10 @@ PATHS = {
         "wp_subword_dense": "cuda",
         "wp_subword_comb": "cuda",
     },
+    # the pattern lexer: TextToWords, TextToSentences, WordPieceTpu
+    "words": {"lexer_pass": "cuda"},
+    "sentences": {"lexer_pass": "cuda"},
+    "wp_lexer": {"lexer_pass": "cuda"},
 }
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
 

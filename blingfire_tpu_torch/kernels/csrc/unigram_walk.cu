@@ -13,8 +13,12 @@
 // it writes the empty value without touching the tables.
 //
 // Every gather keeps the clamp XLA applies silently (unigram.py:176-180,
-// 187-188, 199-200, 205-206): CUDA would read out of bounds instead, and a
-// dead state's base is negative (ops/tables.py:116).  Like the JAX walk it
+// 187-188, 199-200, 205-206): CUDA would read out of bounds instead; but a
+// comb or wide slot outside [0, n_slots) is no transition, not clamped.  A
+// dead state's base is negative (ops/tables.py:116), and so is that of the
+// state placed first when its lowest symbol is above 0: JAX's clamp takes
+// slot 0's transition from that state, which owns slot 0, and the automaton
+// has no such transition (ROADMAP.md section C).  Like the JAX walk it
 // reads x past the row's length after the first step; only the start is
 // masked.
 //
@@ -65,7 +69,12 @@ __device__ __forceinline__ int32_t step(const Tables& t, int32_t state,
         return ((e >> 1) & 0x7FFF) - 1;
     }
     const int32_t bs = __ldg(t.base + clamp64(state, 0, t.n_states - 1));
-    const int64_t slot = clamp64((int64_t)bs + c, 0, t.n_slots - 1);
+    const int64_t slot = (int64_t)bs + c;
+    if (slot < 0 || slot >= t.n_slots) {  // no transition outside the slots
+        *ow_add = 0;
+        *fin = false;
+        return -1;
+    }
     if constexpr (MODE == 1) {
         const int32_t ea = __ldg(t.wide_a + slot);
         if ((ea & 0x1FFFF) != state) {

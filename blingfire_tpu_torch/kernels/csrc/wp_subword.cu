@@ -12,10 +12,13 @@
 // One block a row, one thread a start position, lw steps at most; a lane
 // stops at its first dead state (the JAX walk carries -1 from there on).
 // XLA clamps every gather silently and CUDA does not, so each clamp is
-// explicit: the dense flat index to [0, top] (lexer.py:273-276), the comb
-// slot to [0, n_slots - 1] (lexer.py:389-392), a state index to
-// [0, n_states - 1], ow_perm's index (lexer.py:289) and the action lookups
-// (wp_emit.cuh).  The token-length gate (d >= max_token_length: only the R
+// explicit: the dense flat index to [0, top] (lexer.py:273-276), a state
+// index to [0, n_states - 1], ow_perm's index (lexer.py:289) and the action
+// lookups (wp_emit.cuh).  The comb slot is not clamped: a slot outside
+// [0, n_slots) is no transition.  JAX clamps it (lexer.py:389-392) and so
+// takes slot 0's transition from the state that owns slot 0 when the slot
+// falls below 0; the automaton has no such transition (ROADMAP.md
+// section C).  The token-length gate (d >= max_token_length: only the R
 // anchor passes, lexer.py:277-279) is kept though lw <= 42 never reaches
 // the usual 300.
 //
@@ -91,8 +94,10 @@ __device__ __forceinline__ void walk(const Comb& t, const Row& r,
         if (c >= 0) {
             const int32_t bs =
                 __ldg(t.base + clamp64(state, 0, t.n_states - 1));
-            const int64_t slot = clamp64((int64_t)bs + c, 0, t.n_slots - 1);
-            if (__ldg(t.owner + slot) == state) ns = __ldg(t.nxt + slot);
+            // no transition outside the slot array (ops/lexer.py::comb_lookup)
+            const int64_t raw = (int64_t)bs + c;
+            if (raw >= 0 && raw < t.n_slots && __ldg(t.owner + raw) == state)
+                ns = __ldg(t.nxt + raw);
         }
         if (d >= r.max_tok && c != r.r_iw) ns = -1;
         if (ns >= 0) {

@@ -308,6 +308,11 @@ def get_runtime():
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ]
             _bind_wp(lib)
+            for name in ("TextToWords", "TextToSentences"):
+                f = getattr(lib, name)
+                f.restype = ctypes.c_int
+                f.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                              ctypes.c_int]
             lib.SetCaseFoldTable.restype = None
             lib.SetCaseFoldTable.argtypes = [ctypes.c_void_p, ctypes.c_int]
             from ..runtime.casefold import tolower_table
@@ -318,3 +323,21 @@ def get_runtime():
             lib._casefold_table = table  # keep the buffer alive
             _rt = lib
     return _rt
+
+
+def text_to_words(data: bytes, sentences: bool = False) -> str | None:
+    """The native runtime's TextToWords (TextToSentences with
+    ``sentences``) with its compiled-in wbd (sbd) model: the words joined by
+    spaces (the sentences by newlines), or None for input it rejects."""
+    rt = get_runtime()
+    fn = rt.TextToSentences if sentences else rt.TextToWords
+    cap = 4 * len(data) + 64
+    while True:
+        buf = ctypes.create_string_buffer(cap)
+        n = fn(data, len(data), buf, cap)
+        if n <= cap:
+            break
+        cap = n
+    if n < 0:
+        return None
+    return buf.raw[: max(n - 1, 0)].decode("utf-8")

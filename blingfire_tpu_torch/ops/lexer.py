@@ -1,29 +1,36 @@
-"""The WordPiece sub-token pass on the card: port of the parts of
-blingfire_tpu/ops/lexer.py that the WordPiece hybrid runs.
+"""The pattern lexer's device passes on the card: port of
+blingfire_tpu/ops/lexer.py.
 
-The hybrid (runtime/wp_hybrid.py) packs unique words, each with its own L
-and R anchors, into rows of 128 lanes.  The pass walks every lane of a row
-from its unit's sub-function state in lockstep, keeps the deepest final of
-each start, maps it to the rule's action (RightCx, tag, function) and runs
-the reference's sequential FromPos skip scan (FALexTools_t.h:229-397) over
-the row; the matches come out left-compacted as packed lanes
-``(tag + 1) | from << 17 | to << 24 | nested << 31`` with the count in
-column 128, the layout native ``BtlWpStitch`` reads.
+Two passes, each beside its plain PyTorch version:
 
-Kernels here, each beside its plain PyTorch version:
+* ``lexer_pass`` (K9, ``kernels/csrc/lexer_pass.cu``): the pass of the
+  pattern lexer (runtime/lexer_host.py) over rows ``[L c1 .. cn R -1 ..]``,
+  each with its own initial state (a grammar function).  Every start walks
+  the comb table from that state, an exact lookup and then the IW_ANY
+  fallback a step, keeps its deepest final, maps it to the rule's action
+  (RightCx, tag, function), and the reference's sequential FromPos skip
+  scan (FALexTools_t.h:229-397) marks the starts it visits.  K9 writes the
+  five planes (visited, tag, from, to, fn) as one (B, 5M) int32 array, the
+  concatenation ``_pack5`` of the JAX package (runtime/lexer_host.py:29-41),
+  so each launch costs one device-to-host copy.
+* the WordPiece sub-token pass of the hybrid (runtime/wp_hybrid.py), which
+  packs unique words, each with its own L and R anchors, into rows of 128
+  lanes and emits the matches left-compacted as packed lanes
+  ``(tag + 1) | from << 17 | to << 24 | nested << 31`` with the count in
+  column 128, the layout native ``BtlWpStitch`` reads:
+  ``wp_subword_pass_dense`` (K7, ``kernels/csrc/wp_subword.cu``) walks the
+  dense finals-first table of :func:`make_dense_sub`, one gather a step;
+  ``wp_subword_pass`` (K8, same source) walks the comb table, used when
+  :func:`make_dense_sub` declines the dense table, which it otherwise
+  scatters on the card with K3 (``ops/bpe.py::scatter_trie``, the
+  computation of ``_scatter_dense``).
 
-* ``wp_subword_pass_dense`` (K7, ``kernels/csrc/wp_subword.cu``): the walk
-  in the dense finals-first table of :func:`make_dense_sub`, one gather a
-  step;
-* ``wp_subword_pass`` (K8, same source): the comb-table walk, used when
-  :func:`make_dense_sub` declines the dense table;
-* :func:`make_dense_sub` scatters its dense table on the card with K3
-  (``ops/bpe.py::scatter_trie``), which computes ``_scatter_dense``.
-
-A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches its kernel or raises.  The row-level lexer pass of the
-pattern lexer (``lexer_pass``) is not ported yet (ROADMAP.md queue A item
-8).
+Every comb lookup here takes no transition when ``base[s] + c`` falls
+outside the slot array (:func:`comb_lookup`); the JAX package clamps it
+there, and so can take a transition that the automaton does not have.  And
+``lexer_pass`` takes no IW_ANY transition after an explicitly DEAD one, nor
+a match of the L anchor alone, where JAX's does (ROADMAP.md section C).  A wrapper runs the plain version only for tensors
+on the CPU; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,7 +47,10 @@ from .tables import CombTable
 INT32_MAX = 2**31 - 1
 MAX_ROW = 128  # from/to are 7-bit fields of the lane layout
 DENSE_MAX_ENTRIES = 256_000_000  # make_dense_sub's cap (lexer.py:226)
-ROADMAP_A8 = "ROADMAP.md queue A item 8"
+PLANES = 5  # lexer_pass: visited, tag, from2, to2, fn
+# K9 holds a row (9 bytes a lane) in shared memory: 227 KB on an H100
+MAX_LEXER_ROW = 16384 + 2
+HOST_ONLY = "this action needs the host engine (runtime/lexer.py)"
 
 
 @dataclass(frozen=True)
@@ -69,7 +79,8 @@ def make_device_tables(table: CombTable, moore_ow, acts: dict,
 
     Only the single-function action shape of every reference model is
     supported on the card (LeftCx == 0, at most one function); other
-    actions raise NotImplementedError (ROADMAP.md queue A item 8)."""
+    actions raise NotImplementedError, as the JAX package asserts: such a
+    grammar needs the host engine (runtime/lexer.py)."""
     n_acts = max(acts.keys()) + 1 if acts else 0
     act_right = np.zeros(n_acts, np.int32)
     act_tag = np.zeros(n_acts, np.int32)
@@ -77,7 +88,7 @@ def make_device_tables(table: CombTable, moore_ow, acts: dict,
     for k, a in acts.items():
         a = np.asarray(a)
         if int(a[0]) != 0:
-            raise NotImplementedError(f"{ROADMAP_A8}: LeftCx != 0")
+            raise NotImplementedError(f"{HOST_ONLY}: LeftCx != 0")
         act_right[k] = int(a[1])
         act_tag[k] = int(a[2])
         fns = []
@@ -89,7 +100,7 @@ def make_device_tables(table: CombTable, moore_ow, acts: dict,
                 raise ValueError(f"unexpected action layout {a.tolist()}")
             fns = [int(x) for x in a[i:]]
         if len(fns) > 1:
-            raise NotImplementedError(f"{ROADMAP_A8}: multi-function action")
+            raise NotImplementedError(f"{HOST_ONLY}: multi-function action")
         if fns:
             act_fn[k] = fns[0]
     any_dense = int(table.sym2iw[0]) if len(table.sym2iw) > 0 else -1
@@ -233,10 +244,37 @@ def _walk_dense_plain(tables: LexerDeviceTables, dnext, ow_perm, x, init,
     return fin_pos, fin_ow
 
 
+def comb_lookup(tables: LexerDeviceTables, state, c, reads=None):
+    """One comb lookup of every lane: (next state, hit).  ``hit``: the lane
+    is live, the symbol real and the state owns the slot; next is -1 where
+    the lane is dead, the symbol is padding or there is no hit, and also
+    where the slot holds an explicitly DEAD transition (the comb keeps its
+    slot with nxt -1, ops/tables.py:153).
+
+    The lookup hits only when ``raw = base[s] + c`` lies in [0, n_slots)
+    and ``owner[raw] == s``.  The JAX package clamps raw into the slot array
+    first (lexer.py:115, :389-392), which false-hits when s owns slot 0 and
+    raw < 0: a transition that the automaton does not have (ROADMAP.md
+    section C).  ``reads`` as in :func:`_walk_dense_plain`."""
+    n_states = tables.base.numel()
+    live = (state >= 0) & (c >= 0)
+    s_safe = state.clamp(0, n_states - 1).long()
+    raw = tables.base[s_safe].long() + c.clamp(min=0).long()
+    inside = live & (raw >= 0) & (raw < tables.n_slots)
+    slot = raw.clamp(0, tables.n_slots - 1)
+    hit = inside & (tables.owner[slot] == state)
+    if reads is not None:
+        reads.note("base", tables.base, s_safe, live)
+        reads.note("owner", tables.owner, slot, inside)
+        reads.note("nxt", tables.nxt, slot, hit)
+    return torch.where(hit, tables.nxt[slot], -1), hit
+
+
 def _walk_comb_plain(tables: LexerDeviceTables, x, init, r_iw: int, lw: int,
                      reads=None):
-    """(fin_pos, fin_ow) of the comb walk (lexer.py:376-401); ``reads`` as
-    in :func:`_walk_dense_plain`."""
+    """(fin_pos, fin_ow) of the comb walk (lexer.py:376-401), each lookup
+    guarded as in :func:`comb_lookup`; ``reads`` as in
+    :func:`_walk_dense_plain`."""
     B, M = x.shape
     pos = torch.arange(M, dtype=torch.int32, device=x.device)
     xp = _pad_row(x, lw)
@@ -247,21 +285,14 @@ def _walk_comb_plain(tables: LexerDeviceTables, x, init, r_iw: int, lw: int,
     n_states = tables.base.numel()
     for d in range(lw):
         c = xp[:, d : d + M]
-        s_safe = state.clamp(0, n_states - 1).long()
-        slot = (tables.base[s_safe].long() + c.clamp(min=0).long()).clamp(
-            0, tables.n_slots - 1)
-        live = (state >= 0) & (c >= 0)
-        hit = (tables.owner[slot] == state) & live
-        ns = torch.where(hit, tables.nxt[slot], -1)
+        if reads is not None:
+            reads.step((state >= 0) & (c >= 0))
+        ns = comb_lookup(tables, state, c, reads)[0]
         if d >= tables.max_token_length:
             ns = torch.where(c == r_iw, ns, -1)
         ns_safe = ns.clamp(0, n_states - 1).long()
         fin = (ns >= 0) & tables.final[ns_safe]
         if reads is not None:
-            reads.step(live)
-            reads.note("base", tables.base, s_safe, live)
-            reads.note("owner", tables.owner, slot, live)
-            reads.note("nxt", tables.nxt, slot, hit)
             reads.note("final", tables.final, ns_safe, ns >= 0)
             reads.note("moore_ow", tables.moore_ow, ns_safe, fin)
         fin_pos = torch.where(fin, pos + d, fin_pos)
@@ -310,6 +341,101 @@ def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
     return torch.cat([svals, counts[:, None],
                       torch.zeros((B, 1), dtype=torch.int32, device=x.device)],
                      dim=1)
+
+
+def _lexer_pass_plain(tables: LexerDeviceTables, x, init, ext_len,
+                      reads=None):
+    """The five (B, M) planes of lexer.py::lexer_pass (lexer.py:93-176):
+    (visited bool, tag, from2, to2, fn int32).
+
+    WALK: every start before the row's R anchor walks from the row's initial
+    state, at most max_token_length + 1 steps; a step is the exact lookup,
+    then the IW_ANY lookup for a real symbol whose state has no slot for it
+    (both guarded as in :func:`comb_lookup`); past max_token_length only the
+    R anchor may be consumed (lexer.py:126-133).  An explicitly DEAD
+    transition ends the walk without the IW_ANY lookup, as the reference's
+    GetDest returns -2, not -1, for it (runtime/lexer.py:64-69); JAX's walk
+    falls back to IW_ANY there too (lexer.py:131).  And the state the
+    L-anchor start reaches on the anchor alone is no match: the reference
+    tests finality only after a character or the R anchor
+    (runtime/lexer.py:140-168), where JAX's walk tests it at every step
+    (lexer.py:134).  ROADMAP.md section C has these faults.  The deepest final gives the position and
+    Moore Ow.  SCAN: the action gathers, clamped at both ends as XLA clamps
+    them, and the sequential FromPos skip scan.  The JAX while loop runs
+    until every lane of the batch is dead; a dead lane stays dead, so
+    stopping there changes nothing.  ``reads`` as in
+    :func:`_walk_dense_plain`."""
+    B, M = x.shape
+    dev = x.device
+    i32 = torch.int32
+    pos = torch.arange(M, dtype=i32, device=dev)
+    L = tables.max_token_length + 1  # letters budget + anchor/R step
+    xp = _pad_row(x, L)
+    r_pos = (ext_len - 1)[:, None]  # ext index of the R anchor
+    valid = pos < r_pos
+    state = torch.where(valid, init[:, None], -1).to(i32)
+    fin_pos = torch.full((B, M), -1, dtype=i32, device=dev)
+    fin_ow = torch.full((B, M), -1, dtype=i32, device=dev)
+    any_c = torch.full((B, M), tables.any_iw, dtype=i32, device=dev)
+    n_states = tables.base.numel()
+    for d in range(L):
+        if not bool((state >= 0).any()):
+            break
+        c = xp[:, d : d + M]
+        # the length gate, applied before the lookups it makes moot
+        allowed = (d < tables.max_token_length) | (pos + d == r_pos)
+        st = torch.where(allowed, state, -1)
+        if reads is not None:
+            reads.step((st >= 0) & (c >= 0))
+        ns, hit = comb_lookup(tables, st, c, reads)
+        need = ~hit & (c >= 0) & (st >= 0)
+        ns = torch.where(need, comb_lookup(tables, torch.where(need, st, -1),
+                                           any_c, reads)[0], ns)
+        ns_safe = ns.clamp(0, n_states - 1).long()
+        fin = (ns >= 0) & tables.final[ns_safe]
+        if d == 0:
+            fin &= pos != 0  # no match of the L anchor alone
+        if reads is not None:
+            reads.note("final", tables.final, ns_safe, ns >= 0)
+            reads.note("moore_ow", tables.moore_ow, ns_safe, fin)
+        fin_pos = torch.where(fin, pos + d, fin_pos)
+        fin_ow = torch.where(fin, tables.moore_ow[ns_safe], fin_ow)
+        state = ns
+
+    # SCAN: spans in ORIGINAL coordinates (ext - 1), clamped to the span
+    hi = (ext_len - 3).clamp(min=0)[:, None]  # max(in_size - 1, 0)
+    o = fin_ow.clamp(0, tables.act_right.numel() - 1).long()
+    right = tables.act_right[o]
+    tag = torch.where(fin_ow >= 0, tables.act_tag[o], 0)
+    fn = torch.where(fin_ow >= 0, tables.act_fn[o], -1)
+    if reads is not None:
+        for name in ("act_right", "act_tag", "act_fn"):
+            reads.note(name, getattr(tables, name), o, fin_ow >= 0)
+    from_orig = pos - 1  # the L-anchor start q = 0 is FromPos -1
+    reach = fin_pos - 1 - right
+    from2 = torch.minimum(from_orig.clamp(min=0), hi)
+    to2 = torch.minimum(reach.clamp(min=0), hi)
+    has = fin_pos >= 0
+    skip = torch.where(has, torch.maximum(from_orig, reach), from_orig)
+    vis = torch.zeros((B, M), dtype=torch.bool, device=dev)
+    nv = torch.zeros(B, dtype=i32, device=dev)
+    for q in range(M):
+        v = nv == q
+        vis[:, q] = v
+        nv = torch.where(v, skip[:, q] + 2, nv)
+    return vis & valid & has, tag, from2, to2, fn
+
+
+def pack5(visited, tag, from2, to2, fn) -> torch.Tensor:
+    """Plain version of the concatenation K9 writes: (B, 5M) int32 (B12,
+    runtime/lexer_host.py:29-41)."""
+    return torch.cat([visited.to(torch.int32), tag, from2, to2, fn], dim=1)
+
+
+def unpack5(packed: torch.Tensor):
+    """The five planes of a (B, 5M) pack, visited as bool."""
+    vis, tag, from2, to2, fn = packed.chunk(PLANES, dim=1)
+    return vis != 0, tag, from2, to2, fn
 
 
 def _pass_dense_plain(tables, dnext, ow_perm, x, init, l_iw, r_iw, lw, n_f,
@@ -403,3 +529,61 @@ def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
             tables.max_token_length, out.data_ptr(),
         )
     return out
+
+
+def _on(a, dtype, device) -> torch.Tensor:
+    """``a`` (an array or a tensor) as a contiguous tensor on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def lexer_pass_packed(tables: LexerDeviceTables, x_ext: torch.Tensor,
+                      init_states: torch.Tensor, ext_len: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """The pattern lexer's pass over a batch of rows (K9), its five planes
+    written as one (B, 5M) int32 array: visited (0/1), tag, from2, to2, fn.
+
+    x_ext: int32 (B, M) rows ``[L_ANCHOR, chars..., R_ANCHOR, -1 ...]`` of
+    dense input weights; init_states: int32 (B,) each row's initial state;
+    ext_len: int32 (B,) its characters + 2.  from2/to2 are RightCx-adjusted
+    and clamped to the span in ORIGINAL coordinates (ext - 1).  Replaces
+    lexer.py::lexer_pass with lexer_host.py::_pack5."""
+    if not kernels.on_card(x_ext):
+        return _plain_into(pack5(*_lexer_pass_plain(
+            tables, x_ext, init_states, ext_len)), out)
+    B, M = x_ext.shape
+    if not 1 <= M <= MAX_LEXER_ROW:
+        raise ValueError(f"rows of 1..{MAX_LEXER_ROW} lanes only, got {M}")
+    if tables.act_right.numel() < 1:
+        raise ValueError("the grammar has no actions")
+    kernels.check(x_ext, torch.int32, (B, M), "x_ext")
+    kernels.check(init_states, torch.int32, (B,), "init_states")
+    kernels.check(ext_len, torch.int32, (B,), "ext_len")
+    if out is None:
+        out = torch.empty((B, PLANES * M), dtype=torch.int32,
+                          device=x_ext.device)
+    kernels.check(out, torch.int32, (B, PLANES * M), "out")
+    if B:
+        kernels.launch(
+            "lexer_pass", x_ext.device,
+            tables.base.data_ptr(), tables.owner.data_ptr(),
+            tables.nxt.data_ptr(), tables.final.data_ptr(),
+            tables.moore_ow.data_ptr(), tables.base.numel(), tables.n_slots,
+            tables.act_right.data_ptr(), tables.act_tag.data_ptr(),
+            tables.act_fn.data_ptr(), tables.act_right.numel(),
+            tables.any_iw, tables.max_token_length, x_ext.data_ptr(),
+            init_states.data_ptr(), ext_len.data_ptr(), B, M, out.data_ptr(),
+        )
+    return out
+
+
+def lexer_pass(tables: LexerDeviceTables, x_ext, init_states, ext_len,
+               device: str | torch.device | None = None):
+    """(visited bool, tag, from2, to2, fn), each (B, M): the planes of
+    :func:`lexer_pass_packed`, as lexer.py::lexer_pass returns them.  The
+    inputs (arrays or tensors) go to ``device``, by default the tables'."""
+    device = tables.base.device if device is None else torch.device(device)
+    return unpack5(lexer_pass_packed(
+        tables, _on(x_ext, torch.int32, device),
+        _on(init_states, torch.int32, device),
+        _on(ext_len, torch.int32, device)))

@@ -161,7 +161,7 @@ def walk_depth(tables: UnigramDeviceTables, lw: int | None) -> int:
 
 def walk_step(tables: UnigramDeviceTables, state, c, reads=None):
     """One lockstep transition of every lane (unigram.py:175-205), every
-    gather clamped as XLA clamps it.  Returns (next state, ow to add,
+    gather but the comb slot clamped as XLA clamps it.  Returns (next state, ow to add,
     final).  ``reads`` (a ``kernels.Reads``) notes the entries it reads."""
     live = (state >= 0) & (c >= 0)
     if reads is not None:
@@ -176,26 +176,31 @@ def walk_step(tables: UnigramDeviceTables, state, c, reads=None):
         ns = ((e >> 1) & 0x7FFF) - 1
         return ns, torch.where(e != 0, e >> 16, 0), (e & 1) == 1
     s_safe = state.clamp(min=0).long()
-    slot = (tables.base[s_safe] + c.clamp(min=0)).clamp(0, tables.n_slots - 1).long()
+    # a slot outside [0, n_slots) is no transition; JAX clamps it
+    # (unigram.py:179), which false-hits from the state owning slot 0
+    # (ROADMAP.md section C; ops/lexer.py::comb_lookup)
+    raw = tables.base[s_safe].long() + c.clamp(min=0).long()
+    inside = live & (raw >= 0) & (raw < tables.n_slots)
+    slot = raw.clamp(0, tables.n_slots - 1)
     if reads is not None:
         reads.note("base", tables.base, s_safe, live)
     if tables.wide_a is not None:
         ea = tables.wide_a[slot]
         eb = tables.wide_b[slot]
-        hit = ((ea & 0x1FFFF) == state) & live
+        hit = ((ea & 0x1FFFF) == state) & inside
         if reads is not None:
-            reads.note("wide_a", tables.wide_a, slot, live)
+            reads.note("wide_a", tables.wide_a, slot, inside)
             reads.note("wide_b", tables.wide_b, slot, hit)
         ns = torch.where(hit, (eb & 0x1FFFF) - 1, -1)
         ow = ((ea >> 18) & 0x3FFF) | ((eb >> 17) << 14)
         return ns, torch.where(hit, ow, 0), hit & (((ea >> 17) & 1) == 1)
-    hit = (tables.owner[slot] == state) & live
+    hit = (tables.owner[slot] == state) & inside
     ns = torch.where(hit, tables.nxt[slot], -1)
     n_states = tables.final.numel()
     ns_safe = ns.clamp(0, n_states - 1).long()
     fin = (ns >= 0) & tables.final[ns_safe]
     if reads is not None:
-        reads.note("owner", tables.owner, slot, live)
+        reads.note("owner", tables.owner, slot, inside)
         for name in ("nxt", "ow"):
             reads.note(name, getattr(tables, name), slot, hit)
         reads.note("final", tables.final, ns_safe, ns >= 0)

@@ -21,8 +21,10 @@ Division of labour, as in the JAX package:
 
 Packing many words into one row is sound only when the sub-grammar cannot
 walk across an R anchor and has no IW_ANY transitions; `_fn_pack_safe`
-checks both at load.  A model that fails it raises NotImplementedError: the
-row-level lexer pass it would need is ROADMAP.md queue A item 8.  The TPU
+checks both at load.  A model that fails it raises NotImplementedError
+that points to runtime/lexer_host.py::WordPieceTpu, the row-level pattern
+lexer that serves any WordPiece model (the JAX package's api.py:125-128
+fallback).  The TPU
 package's fixed row buckets, background warm-up and transfer groups
 (``warm``, ``warm_all``, ``big_ready``, ``BIG_BUCKET``, ``GROUP_CHUNKS``)
 avoided XLA recompiles; nothing here compiles per shape, so each length
@@ -46,7 +48,6 @@ from .host import run_pipeline, splice_docs
 MAX_UNIT = 40  # longest word the device path handles (fallback beyond)
 LW_CLASSES = (16, MAX_UNIT)  # unit-length classes -> walk depth lw = len + 2
 ROW_W = 128
-ROADMAP_A8 = "ROADMAP.md queue A item 8"
 
 
 class WpUnitCache:
@@ -197,9 +198,9 @@ class WordPieceHybrid:
         if not self._safe:
             raise NotImplementedError(
                 "this grammar's sub-token function is not pack-safe (IW_ANY "
-                "transitions or a live state after an R anchor); the "
-                "row-level lexer pass it needs is not ported yet: "
-                + ROADMAP_A8)
+                "transitions or a live state after an R anchor): use "
+                "runtime/lexer_host.py::WordPieceTpu(model).text_to_ids_batch, "
+                "the row-level lexer pass that serves it")
 
     # ------------------------------------------------------------------ run
 

@@ -517,3 +517,132 @@ def wp_edge_rows(l_iw: int, r_iw: int, map_raw, width: int = 128,
         f = np.where(rng.random(width) < 0.9, BERT_FN, -1).astype(np.int32)
         rows.append((x, f))
     return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])
+
+
+def slot0_probes(comb) -> tuple[int, list[int]]:
+    """(s, probes): the state that owns slot 0 of a comb table and the
+    symbols c >= 0 with ``base[s] + c < 0``.  Clamping such a slot into the
+    array, as the JAX package does, lands on slot 0, which s owns: a false
+    transition (ROADMAP.md section C).  No probes when ``base[s] >= 0``."""
+    s = int(np.asarray(comb.owner)[0])
+    return s, list(range(max(-int(np.asarray(comb.base)[s]), 0)))
+
+
+def comb_path(comb, start: int, targets) -> list[int] | None:
+    """The shortest path of dense input weights from state ``start`` to a
+    state of ``targets`` (one state or several) over a comb table's real
+    transitions (breadth first), or None when none is in reach."""
+    goal = {int(targets)} if np.isscalar(targets) else {int(t) for t in targets}
+    owner = np.asarray(comb.owner)
+    base = np.asarray(comb.base)
+    nxt = np.asarray(comb.nxt)
+    occ = np.flatnonzero(owner >= 0)
+    src, dst = owner[occ], nxt[occ]
+    iw = occ - base[src]
+    order = np.argsort(src, kind="stable")
+    src, dst, iw = src[order], dst[order], iw[order]
+    row = np.searchsorted(src, np.arange(len(base) + 1))
+    back = {start: None}
+    todo = [start]
+    found = start if start in goal else None
+    while todo and found is None:
+        nxt_todo = []
+        for s in todo:
+            for k in range(row[s], row[s + 1]):
+                d = int(dst[k])
+                if d >= 0 and d not in back:
+                    back[d] = (s, int(iw[k]))
+                    nxt_todo.append(d)
+                    if d in goal and found is None:
+                        found = d
+        todo = nxt_todo
+    if found is None:
+        return None
+    path, s = [], found
+    while back[s] is not None:
+        s, c = back[s]
+        path.append(c)
+    return path[::-1]
+
+
+def slot0_walks(comb, start: int) -> tuple[list[list[int]], int]:
+    """(rows, at): symbol rows that walk from state ``start`` to the state
+    that owns slot 0, read one probe of :func:`slot0_probes` at index
+    ``at``, then follow the path from slot 0's destination (where a
+    clamping lookup lands) to the nearest final state; one row a probe.  A
+    clamping walk reaches that final, a guarded one dies at the probe.  No
+    rows when the state is out of reach or has no probe."""
+    s, probes = slot0_probes(comb)
+    head = comb_path(comb, start, s)
+    tail = comb_path(comb, int(np.asarray(comb.nxt)[0]),
+                     np.flatnonzero(np.asarray(comb.final)))
+    if head is None or tail is None:
+        return [], 0
+    return [head + [c] + tail for c in probes], len(head)
+
+
+def unigram_slot0_model_bytes() -> bytes:
+    """A tiny unigram model whose comb table false-hits under a clamp: its
+    lowest symbol ``a`` never starts a piece, so the root (the state of
+    highest degree, placed first) has no transition on dense symbol 0 and a
+    base of -1 (:func:`slot0_probes`)."""
+    a, b, c, d = 0x61, 0x62, 0x63, 0x64
+    vocab = [((b,), -2.0), ((c,), -2.5), ((d,), -3.0), ((b, a), -4.0),
+             ((c, a), -4.5), ((d, a, b), -6.0)]
+    return compile_dict_model(DictModelSpec(entries=[
+        VocabEntry(ch, 3 + i, s) for i, (ch, s) in enumerate(vocab)]))
+
+
+def lexer_edge_rows(lex, width: int = 64):
+    """(x int32 (R, width + 2), init int32 (R,), ext_len int32 (R,), raws)
+    of hand-made rows for the pattern lexer's pass, from a
+    runtime/lexer_host.py::LexerTpu ``lex``: an empty span (its only start
+    is the L anchor), one character, a row of padding with no anchors, an L
+    anchor with padding where the R anchor should be, unmapped characters,
+    the end of document 107 of tests/corpus.py (``."`` then U+1F642), a
+    row filled to its last lane, a length past the row, rows walked from
+    each function's initial state, and seeded random rows.  ``raws`` holds
+    each row's code points (None where the row is no span of text)."""
+    M = width + 2
+    texts = [("", None), ("a", None), (None, "pad"), (None, "lonely-L"),
+             ("x\U0001F642y☃", None), ('y."\U0001F642\U0001D518', None),
+             (("The end. " * 20)[:width], None), ("ab. cd", "long")]
+    inis = [int(v) for v in dict.fromkeys(lex.engine.fn2ini) if v is not None
+            and v >= 0]
+    texts += [("Mr. Smith's 3.14 e-mail: a@b.com!", ini) for ini in inis]
+    rng = np.random.default_rng(3)
+    pool = np.array([ord(ch) for ch in "ab .,!?'\"-1\n\t"] + [0x1F642, 0x3000,
+                                                              0xE9])
+    texts += [("".join(map(chr, rng.choice(pool, rng.integers(1, width)))),
+               None) for _ in range(6)]
+    xs, inits, lens, raws = [], [], [], []
+    for text, how in texts:
+        x = np.full(M, -1, np.int32)
+        ini = how if isinstance(how, int) else int(lex.engine.initial)
+        if text is None:
+            if how == "lonely-L":
+                x[0] = lex._lanchor
+            xs.append(x), inits.append(ini), lens.append(2), raws.append(None)
+            continue
+        cps = np.array([ord(ch) for ch in text], np.int32)
+        n = len(cps)
+        x[0] = lex._lanchor
+        x[1 : n + 1] = lex.encode_chars(cps)
+        x[n + 1] = lex._ranchor
+        xs.append(x)
+        inits.append(ini)
+        lens.append(M + 3 if how == "long" else n + 2)
+        raws.append(None if how == "long" else cps)
+    return (np.stack(xs), np.array(inits, np.int32),
+            np.array(lens, np.int32), raws)
+
+
+def shipped_lexer_bytes(name: str) -> bytes:
+    """The image of a shipped pattern-lexer model of the package's
+    models_data: ``"wbd"`` (TextToWords) or ``"sbd"`` (TextToSentences)."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "models_data", f"{name}.bin")
+    with open(path, "rb") as f:
+        return f.read()

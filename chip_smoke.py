@@ -41,7 +41,27 @@ Phases, each of which must pass (any failure exits non-zero):
  12. kernels-w K7 and K8 against their plain versions on the packed rows of
               both unit-length classes (walk depth 18 and 42) of one
               uncached 4 MiB batch, and K3 on the dense sub-grammar's CSR;
-              tolerance 0.
+              tolerance 0;
+ 13. model-l  the shipped pattern-lexer models of the package, wbd
+              (TextToWords) and sbd (TextToSentences): their automata's
+              size, functions, and the state that owns slot 0 of the comb
+              table with its base;
+ 14. main-l   the pattern lexer as a user drives it: WordsTpu(wbd,
+              device="cuda").text_to_words_batch over the same corpus, a
+              first call, a second with the span memo emptied, one answered
+              from the memo, one profiled: K9 must launch; every document
+              must equal the native runtime's TextToWords and 500 sampled
+              ones the scalar LexerOracleApi;
+ 15. main-s   the same for WordsTpu(sbd).text_to_sentences_batch against
+              the native TextToSentences; document 107 of tests/corpus.py
+              (U+1F642 after '."'), run apart from the corpus, must be the
+              native runtime's single sentence;
+ 16. main-lw  WordPieceTpu(bert-shaped model, device="cuda")
+              .text_to_ids_batch(docs, unk_id=100) over the corpus's first
+              4 MiB: K9 must launch and the ids equal main-w's;
+ 17. kernels-l K9 against its plain version on the rows of every launch
+              (every level and bucket width) of one uncached 4 MiB batch on
+              each pattern-lexer path; tolerance 0.
 Times per launch come from CUDA events after warm-up.  Each kernel is
 measured on each path that runs it (kernels.PATHS), over the regions (or
 length classes) of one uncached 4 MiB batch in that path's main-path table
@@ -95,6 +115,9 @@ SOURCES = {
                          {"wordpiece": "blingfire_tpu/ops/lexer.py:246"}),
     "wp_subword_comb": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
                         {"wordpiece": "blingfire_tpu/ops/lexer.py:353"}),
+    "lexer_pass": ("blingfire_tpu_torch/kernels/csrc/lexer_pass.cu",
+                   {p: "blingfire_tpu/ops/lexer.py:93"
+                    for p in ("words", "sentences", "wp_lexer")}),
 }
 WP_UNK = 100  # bert's [UNK]
 # the kernels the WordPiece main path launches (K8 runs only when the dense
@@ -108,7 +131,16 @@ KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "unigram_walk": ("unigram_walk_kernel",),
                 "unigram_viterbi": ("unigram_viterbi_kernel",),
                 "wp_subword_dense": ("wp_subword_dense_kernel",),
-                "wp_subword_comb": ("wp_subword_comb_kernel",)}
+                "wp_subword_comb": ("wp_subword_comb_kernel",),
+                "lexer_pass": ("lexer_pass_kernel",)}
+# document 107 of tests/corpus.py::full_corpus(n_random=60): the JAX
+# package's device lexer breaks a sentence after '."' there (ROADMAP.md C)
+DOC_107 = ('&%6%9*9/=@#*66nxUktXncIA, \U0001f680\U0001f680\U0001f389'
+           '\U0001f642\U0001f680\U0001f642\u03b5hhTdhjy."\U0001f642\U0001d518'
+           '\U0001f642\U0001f680\U0001d55e\U0001d55e\U0001f642\U0001f680'
+           '\U0001f680\U0001f642\U0001d55e\U0001d518\U0001f389\U0001f389'
+           '\U0001f680\U0001d55e\U0001d55e\U0001d518\U0001f389\U0001f642'
+           '\U0001f680\U0001f642\U0001d55e\U0001f680')
 
 
 def check(cond, msg) -> None:
@@ -228,20 +260,27 @@ def run_main(tok, docs, label: str, kernels, metrics, **kw) -> dict:
     return dict(ids=ids, bounds=bounds, launches=launches, counters=c)
 
 
-def check_oracle(oracle_ids, docs, ids, bounds, edge, label: str) -> None:
-    """The edge cases and seeded sampled documents equal the scalar oracle
-    (``oracle_ids(doc)``: its ids of one document)."""
+def check_sampled(want_of, got_of, n_docs: int, edge: int, label: str,
+                  what: str = "the oracle") -> None:
+    """The edge cases and seeded sampled documents: ``got_of(i)`` must
+    equal ``want_of(i)``."""
     rng = np.random.default_rng(0)
     sample = list(range(edge)) + list(
-        rng.choice(np.arange(edge, len(docs)), ORACLE_DOCS - edge,
+        rng.choice(np.arange(edge, n_docs), ORACLE_DOCS - edge,
                    replace=False))
     t0 = time.perf_counter()
     for i in sample:
-        want = oracle_ids(docs[i])
-        got = ids[bounds[i] : bounds[i + 1]].tolist()
-        check(got == want, f"{label}: doc {i}: ids differ from the oracle")
-    log(f"[{label}] {len(sample)} sampled docs equal the oracle "
+        check(got_of(i) == want_of(i), f"{label}: doc {i} differs from {what}")
+    log(f"[{label}] {len(sample)} sampled docs equal {what} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_oracle(oracle_ids, docs, ids, bounds, edge, label: str) -> None:
+    """The edge cases and seeded sampled documents equal the scalar oracle
+    (``oracle_ids(doc)``: its ids of one document)."""
+    check_sampled(lambda i: oracle_ids(docs[i]),
+                  lambda i: ids[bounds[i] : bounds[i + 1]].tolist(),
+                  len(docs), edge, label)
 
 
 def packed_regions(native, tok, docs, spm_iw, raw_bytes: bool, charmap, dev):
@@ -550,6 +589,123 @@ def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
     return stats
 
 
+def run_lexer_main(prod, call, docs, label: str, unit: str, count,
+                   kernels, metrics) -> dict:
+    """A pattern-lexer path's main run after its entry point's init:
+    ``call(docs, counters)`` four times: first and second with an empty
+    span memo (the product keeps it across calls), a third answered from
+    the memo the second left, a fourth with an empty memo under the
+    profiler.  ``count(out)``: the words, sentences or ids of an output.
+    Launch counts and peak memory from the init and the first call only
+    (the caller resets both before init)."""
+    n_bytes = sum(map(len, docs))
+    lex = prod.lex
+    c = metrics.Counters()
+    t0 = time.perf_counter()
+    out = call(docs, c)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    st = lex.last_stats
+    n = count(out)
+    log(f"[{label}] first call {t1:.3f} s: {n_bytes / t1:.0f} B/s, "
+        f"{n / t1:.0f} {unit}/s, {n} {unit}, {len(docs)} docs, peak device "
+        f"memory {peak} B")
+    log(f"[{label}] rows by (level, bucket) {dict(sorted(st.rows.items()))}"
+        f"; launches {dict(sorted(st.launches.items()))}; spans walked "
+        f"{st.device_spans}, memoized {st.memo_hits}, sent to the scalar "
+        f"engine {st.scalar_spans}")
+    log(f"[{label}] stage seconds {dict(c.stage_seconds)}")
+    log(f"[{label}] launches {launches}")
+    lex._flat_cache.clear()
+    c2 = metrics.Counters()
+    t0 = time.perf_counter()
+    check(call(docs, c2) == out, "a second call gave another output")
+    t2 = time.perf_counter() - t0
+    log(f"[{label}] second call (memo emptied) {t2:.3f} s: "
+        f"{n_bytes / t2:.0f} B/s, {n / t2:.0f} {unit}/s; stage seconds "
+        f"{dict(c2.stage_seconds)}")
+    t0 = time.perf_counter()
+    check(call(docs, metrics.Counters()) == out,
+          "a call from the memo gave another output")
+    t3 = time.perf_counter() - t0
+    check(lex.last_stats.device_spans == 0, "the memo missed spans")
+    log(f"[{label}] call from the memo {t3:.3f} s: {n_bytes / t3:.0f} B/s")
+    lex._flat_cache.clear()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(docs, metrics.Counters())
+        torch.cuda.synchronize()
+    t4 = time.perf_counter() - t0
+    busy = sum(_self_device_us(ev) for ev in prof.key_averages()) / 1e6
+    log(f"[{label}] profiled call {t4:.3f} s: device busy {busy:.6f} s "
+        f"({busy / t4:.6f} of the call), idle share {1 - busy / t4:.6f}")
+    check(n_bytes > 0 and n > 0 and peak > 0,
+          "bytes, output and peak memory must all be > 0")
+    check(launches.get("lexer_pass", 0) > 0, f"K9 never launched on {label}")
+    return dict(out=out, launches=launches)
+
+
+def lexer_kernels(paths, docs, lexer_ops, dev) -> dict:
+    """Phase 17: K9 against its plain version on the rows of every launch
+    (every level and bucket width) that one uncached CMP_BYTES batch makes
+    on each pattern-lexer path.  ``paths``: path -> (LexerTpu, whether NUL
+    reads as a space, as WordsTpu decodes)."""
+    from blingfire_tpu_torch.runtime.lexer_host import decode_utf8
+
+    sub = corpus_prefix(docs, CMP_BYTES)
+    stats = {}
+    for path, (lex, nul_space) in paths.items():
+        decs = [decode_utf8(d) for d in sub]
+        cps = [np.where(d[0] == 0, 0x20, d[0]) if nul_space else d[0]
+               for d in decs if d is not None and len(d[0])]
+        trace = []
+        lex._flat_cache.clear()
+        lex.process_docs(cps, trace=trace)
+        lex._flat_cache.clear()
+        t = lex.tables
+        key = ("lexer_pass", path)
+        st = new_stats(("lexer_pass",), path)
+        s = st[key]
+        batches = []
+        for level, bucket, x, init, elen, _raws in trace:
+            xd, idv, ed = (torch.from_numpy(a).to(dev) for a in (x, init, elen))
+            batches.append((xd, idv, ed))
+            B, M = x.shape
+            k = lexer_ops.lexer_pass_packed(t, xd, idv, ed)
+            r = reads()
+            p = lexer_ops.pack5(*lexer_ops._lexer_pass_plain(t, xd, idv, ed,
+                                                             reads=r))
+            torch.cuda.synchronize()
+            s["err"] = max(s["err"], max_abs_err([(k, p)]))
+            k_ms = cuda_ms(lambda: lexer_ops.lexer_pass_packed(t, xd, idv, ed),
+                           20)
+            s["ms"] += k_ms
+            s["plain_ms"] += cuda_ms(lambda: lexer_ops._lexer_pass_plain(
+                t, xd, idv, ed), 1, warm=1)
+            # rows in (x; init and ext_len), five planes out, and each
+            # table entry read once
+            s["bytes"] += B * M * 4 + B * 8 + B * M * 20 + r.table_bytes()
+            s["ops"] += r.steps + B * M
+            log(f"[kernels-l] {path} level {level} bucket {bucket}: {B} rows "
+                f"of {M} lanes equal to the plain version; {k_ms:.5f} ms per "
+                f"launch; matches {int(k[:, :M].sum())}; live lane-steps "
+                f"{r.steps}, table bytes read {r.table_bytes()}")
+
+        def once():
+            for xd, idv, ed in batches:
+                lexer_ops.lexer_pass_packed(t, xd, idv, ed)
+
+        profiled_device_ms(once, st)
+        bound, bound_by = bound_of(s)
+        log(f"[kernels-l] {path}: {len(batches)} launches, {s['ms']:.4f} ms, "
+            f"device {s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
+            f"{bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
+        stats.update(st)
+    return stats
+
+
 def sum_or_none(vals):
     """The sum, or None when a value is missing."""
     vals = list(vals)
@@ -624,7 +780,9 @@ def main() -> int:
     from blingfire_tpu_torch.ops import lexer as lexer_ops
     from blingfire_tpu_torch.runtime import dedup, metrics
     from blingfire_tpu_torch.runtime.host import SpTokenizer
+    from blingfire_tpu_torch.ops.tables import build_comb_table_cached
     from blingfire_tpu_torch.runtime.lexer import LexerOracleApi
+    from blingfire_tpu_torch.runtime.lexer_host import WordPieceTpu, WordsTpu
     from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
     t_start = time.perf_counter()
@@ -781,13 +939,113 @@ def main() -> int:
     check(np.array_equal(bounds_c, bounds[: n_sub + 1])
           and np.array_equal(ids_c, ids[: bounds[n_sub]]),
           "the comb pass gave other ids than the dense one")
+    # main-lw holds WordPieceTpu to these
+    sub_ids = [ids[bounds[i] : bounds[i + 1]].tolist() for i in range(n_sub)]
     del ids, bounds, ids_c, bounds_c
 
     # ------------------------------------------------------- 12. kernels-w
     stats.update(wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev))
+    del hyb, hyb_c
+
+    # --------------------------------------------------------- 13. model-l
+    lex_models = {}
+    for name in ("wbd", "sbd"):
+        t0 = time.perf_counter()
+        m = load_bytes(testing.shipped_lexer_bytes(name))
+        comb = build_comb_table_cached(m.wbd.aut, m.source_key, "wbd")
+        fns = [(f, s) for f, s in enumerate(LexerOracleApi(m).engine.fn2ini)
+               if s is not None and s >= 0]
+        s0 = int(comb.owner[0])
+        log(f"[model-l] {name}: {comb.n_states} states, {comb.n_slots} "
+            f"slots, n_iws {comb.n_iws}, max_token_length "
+            f"{m.wbd.max_token_length}, max_depth {m.wbd.max_depth}, "
+            f"functions (id, initial state) {fns}, owner[0] = state {s0} "
+            f"with base {int(comb.base[s0])}, {len(m.wbd.acts)} actions, "
+            f"{time.perf_counter() - t0:.1f} s")
+        lex_models[name] = m
+
+    # ------------------------------------------- 14. main-l, 15. main-s
+    lex_runs = {}
+    lex_paths = {}
+    for path, name, meth, unit, sep in (
+            ("words", "wbd", "text_to_words_batch", "words", " "),
+            ("sentences", "sbd", "text_to_sentences_batch", "sentences",
+             "\n")):
+        label = {"words": "main-l", "sentences": "main-s"}[path]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prod = WordsTpu(lex_models[name], device="cuda")
+        torch.cuda.synchronize()
+        log(f"[{label}] WordsTpu({name}) init {time.perf_counter() - t0:.3f} "
+            f"s; buckets {prod.lex.buckets}")
+        run = run_lexer_main(
+            prod, lambda d, c, p=prod, m=meth: getattr(p, m)(d, counters=c),
+            docs, label, unit,
+            lambda out, sep=sep: sum(len(o.split(sep)) for o in out if o),
+            kernels, metrics)
+        out = run["out"]
+        sentences = path == "sentences"
+        t0 = time.perf_counter()
+        bad = [i for i, d in enumerate(docs)
+               if native.text_to_words(d, sentences) != out[i]]
+        check(not bad, f"{label}: {len(bad)} docs differ from the native "
+              f"runtime, first {bad[:5]}")
+        log(f"[{label}] all {len(docs)} docs equal the native runtime's "
+            f"{'TextToSentences' if sentences else 'TextToWords'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        oracle_l = LexerOracleApi(lex_models[name])
+        want = (oracle_l.text_to_sentences if sentences
+                else oracle_l.text_to_words)
+        check_sampled(lambda i: want(docs[i]), lambda i: out[i], len(docs),
+                      n_edge, label, "LexerOracleApi")
+        if sentences:
+            got = prod.text_to_sentences_batch([DOC_107])[0]
+            nat = native.text_to_words(DOC_107.encode(), sentences=True)
+            check(got == nat and "\n" not in got,
+                  "document 107 is not the native runtime's single sentence")
+            log(f"[{label}] document 107 is one sentence, as the native "
+                f"runtime gives it")
+        lex_runs[path] = run
+        lex_paths[path] = (prod.lex, True)
+        del out, run
+
+    # --------------------------------------------------------- 16. main-lw
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wpt = WordPieceTpu(model_w, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[main-lw] WordPieceTpu(bert-shaped) init "
+        f"{time.perf_counter() - t0:.3f} s")
+    c_lw = metrics.Counters()
+    t0 = time.perf_counter()
+    ids_lw = wpt.text_to_ids_batch(sub, unk_id=WP_UNK, counters=c_lw)
+    t_lw = time.perf_counter() - t0
+    main_lw = {"launches": dict(kernels.launches)}
+    st = wpt.lex.last_stats
+    n_ids = sum(map(len, ids_lw))
+    n_sub_b = sum(map(len, sub))
+    log(f"[main-lw] text_to_ids_batch over {n_sub} docs, {n_sub_b} B: "
+        f"{t_lw:.3f} s, {n_sub_b / t_lw:.0f} B/s, {n_ids / t_lw:.0f} ids/s; "
+        f"rows by (level, bucket) {dict(sorted(st.rows.items()))}; spans "
+        f"memoized {st.memo_hits}, scalar {st.scalar_spans}; peak device "
+        f"memory {torch.cuda.max_memory_allocated()} B; stage seconds "
+        f"{dict(c_lw.stage_seconds)}; launches {main_lw['launches']}")
+    check(main_lw["launches"].get("lexer_pass", 0) > 0,
+          "K9 never launched on main-lw")
+    check(ids_lw == sub_ids, "WordPieceTpu gave other ids than the hybrid")
+    log(f"[main-lw] the ids of all {n_sub} docs equal main-w's")
+    lex_paths["wp_lexer"] = (wpt.lex, False)
+    del ids_lw, sub_ids
+
+    # ------------------------------------------------------- 17. kernels-l
+    stats.update(lexer_kernels(lex_paths, docs, lexer_ops, dev))
 
     path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
-                 ("wordpiece", main_wc))
+                 ("wordpiece", main_wc), ("words", lex_runs["words"]),
+                 ("sentences", lex_runs["sentences"]),
+                 ("wp_lexer", main_lw))
     rows = kernel_rows(stats, path_runs, kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

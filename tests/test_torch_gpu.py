@@ -1,7 +1,9 @@
 """The port's kernels against their plain versions on the card: the four of
 the byte-BPE path, K5 unigram_walk and K6 unigram_viterbi in every row
-region and table mode, and the WordPiece pass (K7 dense, K8 comb, K3 on the
-dense sub-grammar).
+region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
+dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
+wbd and sbd models; K5 and K8 also on a lookup below slot 0, where the JAX
+package's clamp takes a transition that the automaton does not have.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -10,6 +12,7 @@ machine).  On the card: ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,6 +27,8 @@ from blingfire_tpu_torch.ops import bpe, lexer, unigram
 from blingfire_tpu_torch.ops.tables import build_comb_table
 from blingfire_tpu_torch.runtime import dedup
 from blingfire_tpu_torch.runtime.host import SpTokenizer
+from blingfire_tpu_torch.runtime.lexer_host import (LexerTpu, WordsTpu,
+                                                    decode_utf8)
 from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
 pytestmark = pytest.mark.gpu
@@ -263,3 +268,106 @@ def test_wordpiece_encode_corpus_flat_on_the_card_matches_cpu():
     cids, cbounds = _wp(False, "cpu").encode_corpus_flat(
         _wp_docs(), unk_id=100, batch_docs=64)
     assert (ids == cids).all() and (bounds == cbounds).all()
+
+
+def _k9_matches_plain(tables, x, init, ext_len):
+    """One K9 launch against its plain version, both on the card."""
+    n = kernels.launches["lexer_pass"]
+    got = lexer.lexer_pass_packed(tables, x, init, ext_len)
+    assert kernels.launches["lexer_pass"] == n + 1
+    want = lexer.pack5(*lexer._lexer_pass_plain(tables, x, init, ext_len))
+    assert torch.equal(got, want)
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _lex(name: str, device: str) -> LexerTpu:
+    return LexerTpu(load_bytes(testing.shipped_lexer_bytes(name)),
+                    device=device)
+
+
+def _lex_docs():
+    return [d.encode("utf-8") for d in full_corpus()] + \
+        testing.zipf_corpus(60_000)[len(testing.EDGE_CASES):]
+
+
+@pytest.mark.parametrize("name", ["wbd", "sbd"])
+def test_lexer_pass_kernel_matches_plain_at_every_level(name):
+    """The rows of every launch of a WordsTpu call, every level and bucket
+    width."""
+    _need_cuda()
+    lex = _lex(name, "cuda")
+    decs = [decode_utf8(d) for d in _lex_docs()]
+    trace = []
+    lex._flat_cache.clear()
+    lex.process_docs([np.where(d[0] == 0, 0x20, d[0]) for d in decs
+                       if d is not None and len(d[0])], trace=trace)
+    assert {t[0] for t in trace} >= {0, 1}
+    assert len({t[1] for t in trace}) >= 3
+    for _level, _bucket, x, init, elen, _raws in trace:
+        _k9_matches_plain(lex.tables, *(torch.from_numpy(a).cuda()
+                                        for a in (x, init, elen)))
+
+
+@pytest.mark.parametrize("name", ["wbd", "sbd"])
+def test_lexer_pass_kernel_on_edge_rows(name):
+    """Hand-made rows (testing.lexer_edge_rows), also with the token-length
+    gate live (max_token_length 3)."""
+    _need_cuda()
+    lex = _lex(name, "cuda")
+    x, init, elen, _raws = testing.lexer_edge_rows(lex)
+    args = [torch.from_numpy(a).cuda() for a in (x, init, elen)]
+    _k9_matches_plain(lex.tables, *args)
+    gated = dataclasses.replace(lex.tables, max_token_length=3)
+    _k9_matches_plain(gated, *args)
+
+
+def test_words_and_sentences_on_the_card_match_cpu():
+    _need_cuda()
+    docs = _lex_docs()
+    for name, meth in (("wbd", "text_to_words_batch"),
+                       ("sbd", "text_to_sentences_batch")):
+        kernels.reset_launches()
+        gpu = WordsTpu(load_bytes(testing.shipped_lexer_bytes(name)))
+        got = getattr(gpu, meth)(docs)
+        assert kernels.launches["lexer_pass"] > 0
+        cpu = WordsTpu(load_bytes(testing.shipped_lexer_bytes(name)),
+                       device="cpu")
+        assert got == getattr(cpu, meth)(docs)
+
+
+def test_wp_comb_kernel_takes_no_transition_below_slot_0():
+    """K8 on lanes of the bert-shaped comb table driven to the state that
+    owns slot 0, then given a symbol below that state's base
+    (testing.slot0_walks)."""
+    _need_cuda()
+    h = _wp(True, "cuda")
+    ini = int(h._fn2ini[testing.BERT_FN])
+    walks, at = testing.slot0_walks(h.comb, ini)
+    assert walks
+    lw = max(map(len, walks)) + 1
+    x = np.full((len(walks), 128), -1, np.int32)
+    init = np.full((len(walks), 128), -1, np.int32)
+    for r, w in enumerate(walks):
+        x[r, : len(w)] = w
+        init[r, 0] = ini
+    got = _wp_kernel_matches_plain(h, x, init, lw)
+    x[:, at] = -1  # no transition: as if the lane met padding
+    assert torch.equal(got, _wp_kernel_matches_plain(h, x, init, lw))
+
+
+@pytest.mark.parametrize("mode", ["wide", "comb"])
+def test_unigram_walk_kernel_takes_no_transition_below_slot_0(monkeypatch,
+                                                              mode):
+    """K5 on testing.unigram_slot0_model_bytes, whose root owns slot 0 with
+    base -1: a lone ``a`` at a start has no transition."""
+    _need_cuda()
+    _force_mode(monkeypatch, mode)
+    t = _uni_tables(testing.unigram_slot0_model_bytes(), 3)
+    assert t.mode == MODES.index(mode)
+    x = torch.tensor([[0, 1, 0, 2], [1, 0, 0, 3]], dtype=torch.int32).cuda()
+    ln = torch.tensor([4, 4], dtype=torch.int32).cuda()
+    res = _uni_kernels_match_plain(t, x, ln, None, 0)
+    mk, _ms = unigram.unigram_walk(t, x, ln)
+    assert (mk[0, 0] == -1).all() and (mk[1, 1] == -1).all()
+    assert res[3].min() > 0

@@ -26,6 +26,7 @@ new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat",
        "blingfire_tpu_torch.ops.lexer", "blingfire_tpu_torch.runtime.wp_hybrid",
        "blingfire_tpu_torch.runtime.lexer", "blingfire_tpu_torch.runtime.casefold",
        "blingfire_tpu_torch.compiler.wordpiece",
+       "blingfire_tpu_torch.runtime.lexer_host",
        "blingfire_tpu_torch.compiler.lexbin",
        "blingfire_tpu_torch.native.gen_default_models"}
 assert new <= set(names), names
@@ -42,9 +43,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_entry_points_default_to_cuda():
     from blingfire_tpu_torch.ops import bpe, lexer, unigram
     from blingfire_tpu_torch.runtime.host import SpTokenizer
+    from blingfire_tpu_torch.runtime.lexer_host import LexerTpu
     from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
     for fn in (SpTokenizer.__init__, bpe.make_device_tables,
                unigram.make_device_tables, WordPieceHybrid.__init__,
-               lexer.make_device_tables, lexer.make_dense_sub):
+               lexer.make_device_tables, lexer.make_dense_sub,
+               LexerTpu.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -4,7 +4,14 @@ Every comparison is exact: integers at tolerance 0, df64 pairs bit for bit.
 
 A table mode is forced the same way in both packages, by monkeypatching
 their module constants: ``_DENSE_MAX_ENTRIES = 0`` gives the wide mode, and
-``_WIDE_OWNER_SENTINEL = 0`` as well gives the comb mode."""
+``_WIDE_OWNER_SENTINEL = 0`` as well gives the comb mode.
+
+The JAX comb and wide walks clamp a slot ``base[s] + c`` into the slot
+array, so from the state that owns slot 0 a symbol below its base takes
+slot 0's transition; the port takes none (ROADMAP.md section C).  A row is
+held to JAX only where JAX's clamp does not false-hit; these models' roots
+hold every symbol, so no row here does (tests/test_torch_lexer.py holds a
+model whose root does not)."""
 
 from __future__ import annotations
 
@@ -131,6 +138,28 @@ def test_df64_matches_jax_bit_for_bit():
     assert bool(dfloat.df_lt(s_hi[-3], s_lo[-3], s_hi[-4], s_lo[-4]))
 
 
+def _false_hit_rows(pt, x, ln, lw) -> np.ndarray:
+    """bool (B,): rows where JAX's comb or wide walk takes a transition
+    through a slot below 0, replayed on the port's walk (both agree up to
+    it).  The dense table has no clamp."""
+    x, ln = torch.as_tensor(x), torch.as_tensor(ln)
+    B, N = x.shape
+    hit = torch.zeros(B, dtype=torch.bool)
+    if pt.dense is not None:
+        return hit.numpy()
+    s0 = int(pt.owner[0])
+    b0 = int(pt.base[s0])
+    L = unigram.walk_depth(pt, lw)
+    xp = torch.cat([x, torch.full((B, L + 1), -1, dtype=torch.int32)], 1)
+    pos = torch.arange(N)
+    state = torch.where((pos < ln[:, None]) & (x >= 0), 0, -1).to(torch.int32)
+    for d in range(L):
+        c = xp[:, d : d + N]
+        hit |= ((state == s0) & (c >= 0) & (b0 + c < 0)).any(1)
+        state = unigram.walk_step(pt, state, c)[0].to(torch.int32)
+    return hit.numpy()
+
+
 def _jax_segment(jt, x, ln, lw):
     out = jax_unigram.unigram_segment(jt, jnp.asarray(x), jnp.asarray(ln),
                                       jnp.int32(0), lw=lw)
@@ -152,6 +181,7 @@ def test_segment_matches_jax(monkeypatch, mode, region, lw, bounded):
     _force_mode(monkeypatch, mode)
     jt, pt = _both_tables(blob, tok.max_token_len)
     lw_eff = lw if bounded else None
+    assert not _false_hit_rows(pt, x, ln, lw_eff).any()
     port = unigram.unigram_segment(pt, torch.from_numpy(x),
                                    torch.from_numpy(ln), 0, lw=lw_eff)
     _assert_same(port, _jax_segment(jt, x, ln, lw_eff))
@@ -168,6 +198,7 @@ def test_segment_hand_made_rows_match_jax(monkeypatch, mode):
     _force_mode(monkeypatch, mode)
     jt, pt = _both_tables(blob, 3)
     for lw in (None, 2):
+        assert not _false_hit_rows(pt, x, ln, lw).any()
         port = unigram.unigram_segment(pt, torch.from_numpy(x),
                                        torch.from_numpy(ln), 7, lw=lw)
         out = jax_unigram.unigram_segment(jt, jnp.asarray(x), jnp.asarray(ln),
