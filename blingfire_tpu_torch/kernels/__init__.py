@@ -56,6 +56,9 @@ KERNELS = {
     "lexer_pass": ("lexer_pass.cu", "bf_lexer_pass",
                    [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                     _P, _I, _I, _P]),
+    "hyph_segment": ("hyph_segment.cu", "bf_hyph_segment",
+                     [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                      _P, _I, _I, _P]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -80,6 +83,8 @@ PATHS = {
     "words": {"lexer_pass": "cuda"},
     "sentences": {"lexer_pass": "cuda"},
     "wp_lexer": {"lexer_pass": "cuda"},
+    # W2H hyphenation: HyphTpu.process_batch
+    "hyph": {"hyph_segment": "cuda"},
 }
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
 

@@ -4,7 +4,8 @@
 # build/blingfire_tpu_torch/native/.
 """ctypes bindings for the native host library (prep, unit dedup, stitch)
 and the native runtime (the reference-compatible C ABI: TextToIds and its
-family, and the WordPiece hybrid's level-0 scan, intern and stitch).
+family, WordHyphenationWithModel, and the WordPiece hybrid's level-0 scan,
+intern and stitch).
 
 A failed build raises: there is no NumPy fallback."""
 
@@ -313,6 +314,11 @@ def get_runtime():
                 f.restype = ctypes.c_int
                 f.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
                               ctypes.c_int]
+            lib.WordHyphenationWithModel.restype = ctypes.c_int
+            lib.WordHyphenationWithModel.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int,
+            ]
             lib.SetCaseFoldTable.restype = None
             lib.SetCaseFoldTable.argtypes = [ctypes.c_void_p, ctypes.c_int]
             from ..runtime.casefold import tolower_table
@@ -335,6 +341,37 @@ def text_to_words(data: bytes, sentences: bool = False) -> str | None:
     while True:
         buf = ctypes.create_string_buffer(cap)
         n = fn(data, len(data), buf, cap)
+        if n <= cap:
+            break
+        cap = n
+    if n < 0:
+        return None
+    return buf.raw[: max(n - 1, 0)].decode("utf-8")
+
+
+def set_model(image: bytes) -> int:
+    """A native runtime handle (SetModel, which copies the image) of a
+    ``.bin`` image; raises when the runtime rejects it.  Free it with
+    ``get_runtime().FreeModel``."""
+    h = get_runtime().SetModel(image, len(image))
+    if not h:
+        raise ValueError("the native runtime rejected the model image")
+    return h
+
+
+def word_hyphenation(handle: int, word: bytes | str,
+                     hyphen: int = 0x2012) -> str | None:
+    """The native runtime's WordHyphenationWithModel of one UTF-8 word with
+    the [w2h] model of ``handle`` (:func:`set_model`): the word with
+    ``hyphen`` after each hyphenation point, or None for input it rejects.
+    It reads NUL as a space and cuts a word to its first 300 code points
+    (runtime.cpp WordHyphenationWithModel)."""
+    data = word.encode("utf-8") if isinstance(word, str) else word
+    cap = 4 * len(data) + 64
+    while True:
+        buf = ctypes.create_string_buffer(cap)
+        n = get_runtime().WordHyphenationWithModel(
+            data, len(data), buf, cap, ctypes.c_void_p(handle), hyphen)
         if n <= cap:
             break
         cap = n

@@ -18,7 +18,10 @@ unique-unit device path.  The corpus draws Zipfian words from the same word
 list, adds rare words, punctuation and long punctuation runs, and includes
 the edge cases of tests/corpus.py (copied below).  The bert-shaped
 WordPiece model (:func:`bert_shaped_model_bytes`) covers the corpus's word
-list with whole words, prefixes and ``##`` pieces.
+list with whole words, prefixes and ``##`` pieces.  The syllab-shaped W2H
+hyphenation model (:func:`syllab_shaped_model_bytes`) is built from seeded
+patterns with syllab.bin's settings; :func:`corpus_words` turns the corpus
+into its traffic.
 """
 
 from __future__ import annotations
@@ -635,6 +638,147 @@ def lexer_edge_rows(lex, width: int = 64):
         raws.append(None if how == "long" else cps)
     return (np.stack(xs), np.array(inits, np.int32),
             np.array(lens, np.int32), raws)
+
+
+SYLLAB_PATTERNS = 78000  # puts the image within 10% of syllab.bin's 1.18 MB
+SYLLAB_ANCHOR = 94  # '^': syllab.bin's left and right anchor
+HYPH_OPS = (0, 1, 7)  # NO_HYPH, SIMPLE_HYPH, DONT_CARE
+# Cyrillic lowercase by frequency (о е а и н т ...), and ß with the
+# lowercase Latin-1 letters
+_CYRILLIC = [0x43E, 0x435, 0x430, 0x438, 0x43D, 0x442, 0x441, 0x440, 0x432,
+             0x43B, 0x43A, 0x43C, 0x434, 0x43F, 0x443, 0x44F, 0x44B, 0x44C,
+             0x433, 0x437, 0x431, 0x447, 0x439, 0x445, 0x436, 0x448, 0x44E,
+             0x446, 0x449, 0x44D, 0x444, 0x44A, 0x451]
+_LATIN1 = [0xDF] + [c for c in range(0xE0, 0xFF) if c != 0xF7]
+
+
+def syllab_charmap() -> dict[int, list[int]]:
+    """Uppercase Latin, Latin-1 and Cyrillic folded 1:1 to lowercase."""
+    pairs = [(c, c + 0x20) for c in range(0x41, 0x5B)]
+    pairs += [(c, c + 0x20) for c in range(0xC0, 0xDF) if c != 0xD7]
+    pairs += [(c, c + 0x20) for c in range(0x410, 0x430)] + [(0x401, 0x451)]
+    return {c: [lo] for c, lo in pairs}
+
+
+def _zipf_p(n: int) -> np.ndarray:
+    p = 1.0 / np.arange(1, n + 1)
+    return p / p.sum()
+
+
+def syllab_shaped_patterns(n: int, seed: int = 0
+                           ) -> list[tuple[tuple[int, ...], tuple[int, ...]]]:
+    """``n`` unique W2H patterns (key, ops) laid out as syllab.bin's: keys
+    of 2-8 symbols, 75% Latin (8% of their letters Latin-1) and 25%
+    Cyrillic, letters drawn Zipfian by frequency rank, an apostrophe inside
+    2% of positions but never first, 15% anchored by ``^`` at one end. Ops
+    are one a symbol: DONT_CARE on an anchor, else NO_HYPH, SIMPLE_HYPH or
+    DONT_CARE, and 1% coded ``(sym << 4) | 2..6``; no key is all
+    DONT_CARE."""
+    rng = np.random.default_rng(seed + 11)
+    latin = [int(c) for c in _LETTERS[np.argsort(-_LETTER_P, kind="stable")]]
+    alpha = {name: (letters, np.cumsum(_zipf_p(len(letters))))
+             for name, letters in (("lat", latin), ("lat1", _LATIN1),
+                                   ("cyr", _CYRILLIC))}
+    lens = np.arange(2, 9)
+    len_p = np.array([0.08, 0.2, 0.25, 0.2, 0.14, 0.08, 0.05])
+    pats: dict[tuple[int, ...], tuple[int, ...]] = {}
+    while len(pats) < n:
+        k = n - len(pats)
+        L = rng.choice(lens, k, p=len_p)
+        side = rng.random(k)
+        cyr = rng.random(k) < 0.25
+        for i in range(k):
+            left, right = side[i] < 0.08, 0.08 <= side[i] < 0.15
+            body = int(L[i]) - (left or right)
+            r = rng.random((body, 3))
+            syms = []
+            for j in range(body):
+                if j > 0 and r[j, 0] < 0.02:
+                    syms.append(0x27)
+                    continue
+                name = "cyr" if cyr[i] else ("lat1" if r[j, 1] < 0.08 else "lat")
+                letters, cdf = alpha[name]
+                syms.append(letters[min(int(np.searchsorted(cdf, r[j, 2])),
+                                        len(letters) - 1)])
+            u = rng.random(body)
+            ops = [0 if v < 0.5 else 1 if v < 0.75 else 7 if v < 0.99
+                   else (int(rng.choice(latin)) << 4) | int(rng.integers(2, 7))
+                   for v in u]
+            if all(o == 7 for o in ops):
+                ops[int(rng.integers(0, body))] = int(rng.integers(0, 2))
+            key = tuple(syms)
+            if left:
+                key, ops = (SYLLAB_ANCHOR,) + key, [7] + ops
+            elif right:
+                key, ops = key + (SYLLAB_ANCHOR,), ops + [7]
+            pats.setdefault(key, tuple(ops))
+    return list(pats.items())
+
+
+def syllab_shaped_model_bytes(n_patterns: int = SYLLAB_PATTERNS,
+                              seed: int = 0, ignore_case: bool = False,
+                              no_hyph_len: int | None = None) -> bytes:
+    """Compiled ``[w2h]`` image of a syllab-shaped hyphenation model: the
+    patterns of :func:`syllab_shaped_patterns` built by the port's copy of
+    compiler/hyphpats.py::build_w2h_ldb with syllab.bin's settings (min-len
+    2, both anchors ``^``) and :func:`syllab_charmap`.  It stands in for
+    syllab.bin, which is not in the repository.  The root has no apostrophe
+    transition and the apostrophe is the lowest dense symbol, so the root
+    owns slot 0 of the comb table with base -1 (:func:`slot0_probes`)."""
+    from .compiler.hyphpats import build_w2h_ldb
+
+    return build_w2h_ldb(syllab_shaped_patterns(n_patterns, seed), min_len=2,
+                         l_anchor=SYLLAB_ANCHOR, r_anchor=SYLLAB_ANCHOR,
+                         charmap=syllab_charmap(), ignore_case=ignore_case,
+                         no_hyph_len=no_hyph_len)
+
+
+def hyph_slot0_model_bytes() -> bytes:
+    """Five patterns whose comb table false-hits under a clamp: the
+    apostrophe is dense symbol 0 and ``^`` symbol 1; the root has no
+    apostrophe transition, so it owns slot 0 with base -1, and a clamped
+    lookup of the apostrophe there takes the root's ``^`` transition."""
+    from .compiler.hyphpats import build_w2h_ldb
+
+    a, b, c, d, q, h = 0x61, 0x62, 0x63, 0x64, 0x27, SYLLAB_ANCHOR
+    pats = [((h, a, b), (7, 1, 7)), ((b, q, c), (0, 1, 0)),
+            ((a, c, d), (0, 1, 0)), ((c, a), (1, 0)), ((d, a), (1, 0))]
+    return build_w2h_ldb(pats, min_len=2, l_anchor=h, r_anchor=h)
+
+
+def hyph_edge_words() -> list[list[int]]:
+    """Code point lists for hyphenation edge cases: the empty word, one
+    character, lengths 28, 29, 32, 33, 300 and 301 (one past
+    MAX_WORD_SIZE), unmapped characters (emoji, CJK, NUL, a space),
+    uppercase and Cyrillic words the charmap folds, apostrophes (first,
+    inside, last), and short words where a pattern's ops run past the
+    word's end."""
+    def cps(s: str) -> list[int]:
+        return [ord(ch) for ch in s]
+
+    stem = "hyphenationalgorithmictokenizerwords"
+    words = [[], cps("a"), cps("ab"), cps("e'"), cps("'t")]
+    words += [cps((stem * 10)[:n]) for n in (28, 29, 32, 33, 300, 301)]
+    words += [cps(s) for s in (
+        "ab\U0001F642cd", "你好", "\x00embedded", "two words",
+        "HYPHENATION", "Straße", "ПРИВЕТ",
+        "неделя", "don't", "'abab", "cab'ab",
+        "'ab", "rock'n'roll", "naïve", "été", "ta", "st",
+        "abc", "\U0001F642")]
+    return words
+
+
+def corpus_words(docs: list[bytes]) -> list[list[int]]:
+    """The hyphenation traffic of a corpus: every whitespace-separated
+    token, stripped of ``.,!?"'`` at its ends (bench.py's rule), as a code
+    point list; tokens that strip to nothing are dropped."""
+    out: list[list[int]] = []
+    for d in docs:
+        for w in d.decode("utf-8", "replace").split():
+            w = w.strip(".,!?\"'")
+            if w:
+                out.append([ord(ch) for ch in w])
+    return out
 
 
 def shipped_lexer_bytes(name: str) -> bytes:

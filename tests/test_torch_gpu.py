@@ -2,8 +2,9 @@
 the byte-BPE path, K5 unigram_walk and K6 unigram_viterbi in every row
 region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
-wbd and sbd models; K5 and K8 also on a lookup below slot 0, where the JAX
-package's clamp takes a transition that the automaton does not have.
+wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
+K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
+takes a transition that the automaton does not have.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -23,10 +24,11 @@ from corpus import full_corpus
 
 from blingfire_tpu_torch import kernels, native, testing
 from blingfire_tpu_torch.models.loader import load_bytes
-from blingfire_tpu_torch.ops import bpe, lexer, unigram
+from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
 from blingfire_tpu_torch.ops.tables import build_comb_table
 from blingfire_tpu_torch.runtime import dedup
 from blingfire_tpu_torch.runtime.host import SpTokenizer
+from blingfire_tpu_torch.runtime.hyph import HyphTpu
 from blingfire_tpu_torch.runtime.lexer_host import (LexerTpu, WordsTpu,
                                                     decode_utf8)
 from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
@@ -371,3 +373,68 @@ def test_unigram_walk_kernel_takes_no_transition_below_slot_0(monkeypatch,
     mk, _ms = unigram.unigram_walk(t, x, ln)
     assert (mk[0, 0] == -1).all() and (mk[1, 1] == -1).all()
     assert res[3].min() > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _hyph(kind: str, device: str) -> HyphTpu:
+    blob = (testing.syllab_shaped_model_bytes(3000) if kind == "small"
+            else testing.hyph_slot0_model_bytes())
+    return HyphTpu(load_bytes(blob, use_cache=False), device=device)
+
+
+def _hyph_words():
+    docs = [d.encode("utf-8") for d in full_corpus()]
+    return testing.corpus_words(docs) + testing.hyph_edge_words()
+
+
+def _k10_matches_plain(tables, x, wl):
+    """One K10 launch against its plain version, both on the card."""
+    n = kernels.launches["hyph_segment"]
+    got = hyph.hyph_segment(tables, x, wl)
+    assert kernels.launches["hyph_segment"] == n + 1
+    assert torch.equal(got, hyph._hyph_segment_plain(tables, x, wl))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["small", "slot0"])
+def test_hyph_segment_kernel_matches_plain_on_every_launch(kind):
+    """The rows of every launch (every bucket width) of a process_batch
+    call over the corpus words and the edge words; the slot-0 model's
+    apostrophe words die at the apostrophe, as the scalar engine's do."""
+    _need_cuda()
+    h = _hyph(kind, "cuda")
+    trace = []
+    h.process_batch(_hyph_words(), trace=trace)
+    assert len({t[0] for t in trace}) >= 4
+    for _bucket, x, wl, _words in trace:
+        _k10_matches_plain(h.tables, torch.from_numpy(x).cuda(),
+                           torch.from_numpy(wl).cuda())
+
+
+@pytest.mark.parametrize("min_pat_len,no_hyph_len", [(2, 0), (3, 2)])
+def test_hyph_segment_kernel_on_random_rows(min_pat_len, no_hyph_len):
+    """Seeded rows of random symbols, the unmapped sentinel, anchors and
+    padding anywhere, and lengths that disagree with the row."""
+    _need_cuda()
+    h = _hyph("small", "cuda")
+    t = dataclasses.replace(h.tables, min_pat_len=min_pat_len,
+                            no_hyph_len=no_hyph_len)
+    rng = np.random.default_rng(5)
+    for B, W in ((64, 24), (7, 300)):
+        x = rng.integers(-1, h._n_iws + 1, (B, W + 2)).astype(np.int32)
+        x[:, 0] = h._l_iw
+        wl = rng.integers(0, W + 1, B).astype(np.int32)
+        x[np.arange(B), wl + 1] = h._r_iw
+        wl[:3] = [0, W + 3, 1]
+        _k10_matches_plain(t, torch.from_numpy(x).cuda(),
+                           torch.from_numpy(wl).cuda())
+
+
+def test_hyph_tpu_on_the_card_matches_cpu():
+    _need_cuda()
+    words = _hyph_words()
+    kernels.reset_launches()
+    got = _hyph("small", "cuda").process_batch(words)
+    assert kernels.launches["hyph_segment"] > 0
+    assert got == _hyph("small", "cpu").process_batch(words)
+    assert got[words.index([ord(c) for c in "'ab"])] == [-1, -1, -1]

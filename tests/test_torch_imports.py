@@ -28,7 +28,9 @@ new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat",
        "blingfire_tpu_torch.compiler.wordpiece",
        "blingfire_tpu_torch.runtime.lexer_host",
        "blingfire_tpu_torch.compiler.lexbin",
-       "blingfire_tpu_torch.native.gen_default_models"}
+       "blingfire_tpu_torch.native.gen_default_models",
+       "blingfire_tpu_torch.ops.hyph", "blingfire_tpu_torch.runtime.hyph",
+       "blingfire_tpu_torch.compiler.hyphpats"}
 assert new <= set(names), names
 """
 
@@ -41,13 +43,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
-    from blingfire_tpu_torch.ops import bpe, lexer, unigram
+    from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
     from blingfire_tpu_torch.runtime.host import SpTokenizer
+    from blingfire_tpu_torch.runtime.hyph import HyphTpu
     from blingfire_tpu_torch.runtime.lexer_host import LexerTpu
     from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
 
     for fn in (SpTokenizer.__init__, bpe.make_device_tables,
                unigram.make_device_tables, WordPieceHybrid.__init__,
                lexer.make_device_tables, lexer.make_dense_sub,
-               LexerTpu.__init__):
+               LexerTpu.__init__, hyph.make_device_tables,
+               HyphTpu.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
