@@ -35,10 +35,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # name -> (source, C entry point, argtypes before the trailing stream)
 KERNELS = {
     "bpe_walk": ("bpe_walk.cu", "bf_bpe_walk",
-                 [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+                 [_P, _P, _P, _I64] + [_P] * 8 + [_I] * 11 + [_P] * 3),
     "bpe_resolve": ("bpe_resolve.cu", "bf_bpe_resolve",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P]),
+                    [_P] * 6 + [_I] * 9 + [_P] * 5),
     "scatter_trie": ("scatter_trie.cu", "bf_scatter_trie",
                      [_P, _P, _I64, _P, _I64]),
     "unigram_walk": ("unigram_walk.cu", "bf_unigram_walk",
@@ -67,6 +66,12 @@ PATHS = {
         "bpe_walk": "cuda",
         "bpe_resolve": "cuda",
         "pack_out_compact": "triton",
+    },
+    # models off the unit path (not chunk-safe), and long documents' chunks:
+    # SpTokenizer's classic doc-row pass, in every table and rank mode
+    "bpe_classic": {
+        "bpe_walk": "cuda",
+        "bpe_resolve": "cuda",
     },
     "unigram": {
         "unigram_walk": "cuda",

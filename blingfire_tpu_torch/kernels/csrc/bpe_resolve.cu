@@ -1,12 +1,16 @@
-// K2 bpe_resolve: FILTER, SORT, CLAIM and EMIT of byte-BPE, one block a row.
+// K2 bpe_resolve: FILTER, SORT, CLAIM and EMIT of byte- and char-BPE, one
+// block a row.
 //
 // Replaces blingfire_tpu/ops/bpe.py::_resolve_impl (bpe.py:340, jit at :794)
-// with _bitonic_sort (bpe.py:195) inside it, and follows its scatter (CPU)
-// branch bit for bit: the same arc slab order (slot-major d*N+p, then the
-// unknown runs), the same compaction to a_max arcs, the same (id asc, start
-// asc) order with ties kept in slab order, the same lanes (unemitted lanes
-// hold 0 + id_offset with start and end 0) and the same fallback flags
-// (slot_overflow | arc_overflow | anomaly).
+// with _bitonic_sort (bpe.py:195) and, in rank mode, _float_desc_key
+// (bpe.py:181) inside it, and follows its scatter (CPU) branch bit for bit:
+// the same arc slab order (slot-major d*N+p, then the unknown runs), the same
+// compaction to a_max arcs, the same ((rank desc,) id asc, start asc) order
+// with ties kept in slab order, the same lanes (unemitted lanes hold 0 +
+// id_offset with start and end 0) and the same fallback flags (slot_overflow
+// | arc_overflow | anomaly).  The rank key is the reference's order, not
+// JAX's: -0.0 ties +0.0, and an unknown run's +0.0 sorts before every
+// negative rank (ROADMAP.md section C item 5; ops/bpe.py::float_desc_key).
 //
 // One block of ceil(N/32) warps handles one packed row, one thread a start:
 //   FILTER  each thread reads its LR match slots (coalesced along p), finds
@@ -15,8 +19,10 @@
 //           runs come from neighbours in shared memory.
 //   SORT    surviving arcs are compacted into shared memory in slab order
 //           (one block prefix sum per depth), as 64-bit keys
-//           (id, start, slab index), and sorted by an in-block bitonic
-//           network over the next power of two of the row's arc count.
+//           (id, start, slab index) with, in rank mode, a 32-bit rank key
+//           ahead of them (a second word: the 64 bits are full), and sorted
+//           by an in-block bitonic network over the next power of two of
+//           the row's arc count.
 //   CLAIM   one thread walks the sorted arcs with the row's bitmask of
 //           claimed interiors (W = ceil((N+1)/32) words): claim order is
 //           inherently sequential, and a row has a few hundred arcs at most.
@@ -26,8 +32,10 @@
 // Bound: operations and latency, not bytes.  The row's inputs (LR*N + N
 // int32) are read once, coalesced; everything after FILTER stays in shared
 // memory.  The serial claim costs a few cycles per arc on one thread, so
-// enough rows must be in flight to hide it: blocks are small (N threads)
-// and use a few KB of shared memory, so many fit on each SM.
+// enough rows must be in flight to hide it: blocks are small (N threads).
+// The sort keys take 8 (rank mode 12) bytes an arc of shared memory: at
+// a_max = 4096 a block needs up to 63 KB, past the 48 KB default, so the
+// launch opts in to more (Hopper allows 227 KB a block).
 
 #include "common.cuh"
 
@@ -51,8 +59,20 @@ __device__ __forceinline__ uint64_t make_key(int id, int start, int slab) {
            ((uint64_t)(uint32_t)start << 16) | (uint64_t)(uint32_t)slab;
 }
 
+// ascending order == descending rank in the reference's order: -0.0 becomes
+// +0.0, the sign-magnitude bits become an ordered int32, NOT reverses it,
+// and the sign flip makes unsigned order equal signed order
+__device__ __forceinline__ uint32_t rank_key(float r) {
+    int32_t bits = __float_as_int(r);
+    if (bits == INT32_MIN) bits = 0;
+    const int32_t asc = bits >= 0 ? bits : (bits ^ 0x7FFFFFFF);
+    return (uint32_t)(~asc) ^ 0x80000000u;
+}
+
+template <bool RANK>
 __global__ void bpe_resolve_kernel(
-    const int32_t* __restrict__ m_pack, const uint8_t* __restrict__ slot_overflow,
+    const int32_t* __restrict__ m_pack, const float* __restrict__ m_rank,
+    const uint8_t* __restrict__ slot_overflow,
     const int32_t* __restrict__ x, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ prio2id, int B, int N, int LR, int a_max,
     int P_max, int spm_iw, int unk_id, int id_offset, int fast, int trie_v,
@@ -62,7 +82,8 @@ __global__ void bpe_resolve_kernel(
     extern __shared__ unsigned char smem[];
     const int W = (N + 32) / 32;
     uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // P_max
-    int32_t* win_id = reinterpret_cast<int32_t*>(keys + P_max);  // N
+    uint32_t* rkeys = reinterpret_cast<uint32_t*>(keys + P_max);  // P_max, RANK
+    int32_t* win_id = reinterpret_cast<int32_t*>(rkeys + (RANK ? P_max : 0));  // N
     int32_t* win_end = win_id + N;  // N
     int32_t* run_end = win_end + N;  // N
     uint32_t* mask = reinterpret_cast<uint32_t*>(run_end + N);  // W
@@ -115,25 +136,34 @@ __global__ void bpe_resolve_kernel(
     int base = 0;
     for (int d = 0; d < LR; ++d) {
         int v = -1;
-        if (visited && d >= dlast) v = m_pack[((int64_t)d * B + b) * N + p];
+        const int64_t o = ((int64_t)d * B + b) * N + p;
+        if (visited && d >= dlast) v = m_pack[o];
         const bool f = v >= 0;
         int tot;
         const int ex = block_scan(f ? 1 : 0, buf, OpSum(), 0, nullptr, &tot);
-        if (f && base + ex < a_max) keys[base + ex] = make_key(v & 0xFFFFF, p, d * N + p);
+        if (f && base + ex < a_max) {
+            keys[base + ex] = make_key(v & 0xFFFFF, p, d * N + p);
+            if (RANK) rkeys[base + ex] = rank_key(m_rank[o]);
+        }
         base += tot;
     }
     {
         int tot;
         const int ex = block_scan(run_start ? 1 : 0, buf, OpSum(), 0, nullptr, &tot);
-        if (run_start && base + ex < a_max)
+        if (run_start && base + ex < a_max) {
             keys[base + ex] = make_key(prio2id ? 0 : unk_id, p, LR * N + p);
+            if (RANK) rkeys[base + ex] = rank_key(0.0f);  // an unknown run's rank
+        }
         base += tot;
     }
     const int n_arcs = base;
     const int n_keep = n_arcs < a_max ? n_arcs : a_max;
     int P = 1;
     while (P < n_keep) P <<= 1;
-    for (int i = n_keep + p; i < P; i += T) keys[i] = ~0ull;
+    for (int i = n_keep + p; i < P; i += T) {
+        keys[i] = ~0ull;
+        if (RANK) rkeys[i] = ~0u;
+    }
     __syncthreads();
     for (int k = 2; k <= P; k <<= 1) {
         for (int j = k >> 1; j > 0; j >>= 1) {
@@ -141,7 +171,16 @@ __global__ void bpe_resolve_kernel(
                 const int l = i ^ j;
                 if (l > i) {
                     const uint64_t a = keys[i], c = keys[l];
-                    if ((a > c) == ((i & k) == 0)) {
+                    bool gt = a > c;
+                    if (RANK) {
+                        const uint32_t ra = rkeys[i], rc = rkeys[l];
+                        gt = ra > rc || (ra == rc && gt);
+                        if (gt == ((i & k) == 0)) {
+                            rkeys[i] = rc;
+                            rkeys[l] = ra;
+                        }
+                    }
+                    if (gt == ((i & k) == 0)) {
                         keys[i] = c;
                         keys[l] = a;
                     }
@@ -204,28 +243,49 @@ __global__ void bpe_resolve_kernel(
     }
 }
 
-extern "C" int bf_bpe_resolve(const int32_t* m_pack, const uint8_t* slot_overflow,
-                              const int32_t* x, const int32_t* lengths,
-                              const int32_t* prio2id, int B, int N, int LR,
-                              int a_max, int spm_iw, int unk_id, int id_offset,
-                              int fast, int trie_v, int32_t* out_ids,
-                              int32_t* out_starts, int32_t* out_ends,
-                              int32_t* counts, uint8_t* fallback, void* stream) {
+template <bool RANK>
+static int launch(const int32_t* m_pack, const float* m_rank,
+                  const uint8_t* slot_overflow, const int32_t* x,
+                  const int32_t* lengths, const int32_t* prio2id, int B, int N,
+                  int LR, int a_max, int spm_iw, int unk_id, int id_offset,
+                  int fast, int trie_v, int32_t* out_ids, int32_t* out_starts,
+                  int32_t* out_ends, int32_t* counts, uint8_t* fallback,
+                  cudaStream_t stream) {
     const int T = ((N + 31) / 32) * 32;
     int P_max = 1;
     while (P_max < a_max) P_max <<= 1;
     const int W = (N + 32) / 32;
-    const size_t smem = (size_t)P_max * 8 + (size_t)N * 12 + (size_t)W * 4 +
-                        32 * 4 + (size_t)N * 2;
+    const size_t smem = (size_t)P_max * (RANK ? 12 : 8) + (size_t)N * 12 +
+                        (size_t)W * 4 + 32 * 4 + (size_t)N * 2;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            bpe_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bpe_resolve_kernel<RANK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    bpe_resolve_kernel<<<B, T, smem, (cudaStream_t)stream>>>(
-        m_pack, slot_overflow, x, lengths, prio2id, B, N, LR, a_max, P_max,
-        spm_iw, unk_id, id_offset, fast, trie_v, out_ids, out_starts, out_ends,
-        counts, fallback);
+    bpe_resolve_kernel<RANK><<<B, T, smem, stream>>>(
+        m_pack, m_rank, slot_overflow, x, lengths, prio2id, B, N, LR, a_max,
+        P_max, spm_iw, unk_id, id_offset, fast, trie_v, out_ids, out_starts,
+        out_ends, counts, fallback);
     return (int)cudaGetLastError();
+}
+
+// m_rank == NULL: no rank key (plain and merge-priority modes)
+extern "C" int bf_bpe_resolve(const int32_t* m_pack, const float* m_rank,
+                              const uint8_t* slot_overflow, const int32_t* x,
+                              const int32_t* lengths, const int32_t* prio2id,
+                              int B, int N, int LR, int a_max, int spm_iw,
+                              int unk_id, int id_offset, int fast, int trie_v,
+                              int32_t* out_ids, int32_t* out_starts,
+                              int32_t* out_ends, int32_t* counts,
+                              uint8_t* fallback, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (m_rank)
+        return launch<true>(m_pack, m_rank, slot_overflow, x, lengths, prio2id,
+                            B, N, LR, a_max, spm_iw, unk_id, id_offset, fast,
+                            trie_v, out_ids, out_starts, out_ends, counts,
+                            fallback, s);
+    return launch<false>(m_pack, m_rank, slot_overflow, x, lengths, prio2id, B,
+                         N, LR, a_max, spm_iw, unk_id, id_offset, fast, trie_v,
+                         out_ids, out_starts, out_ends, counts, fallback, s);
 }

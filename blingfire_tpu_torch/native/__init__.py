@@ -1,7 +1,7 @@
-# Copy of blingfire_tpu/native/__init__.py (get_lib, NativeUnits, UnitCache,
-# units_analyze, get_runtime).  Both libraries are built from the copies of
-# prep.cpp and runtime.cpp in this directory, at first use, into
-# build/blingfire_tpu_torch/native/.
+# Copy of blingfire_tpu/native/__init__.py (get_lib, prep_sp_batch,
+# NativeUnits, UnitCache, units_analyze, get_runtime).  Both libraries are
+# built from the copies of prep.cpp and runtime.cpp in this directory, at
+# first use, into build/blingfire_tpu_torch/native/.
 """ctypes bindings for the native host library (prep, unit dedup, stitch)
 and the native runtime (the reference-compatible C ABI: TextToIds and its
 family, WordHyphenationWithModel, and the WordPiece hybrid's level-0 scan,
@@ -46,6 +46,12 @@ def get_lib():
             build_all([(out, argv_of)])
             lib = ctypes.cdll.LoadLibrary(out)
             lib.btl_version.restype = ctypes.c_int
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.btl_prep_sp_batch.restype = I
+            lib.btl_prep_sp_batch.argtypes = [
+                ctypes.c_char_p, P, I, I, I, P, P, I, I, I, P, ctypes.c_int64,
+                I, P, P, P, P, P,
+            ]
             lib.btl_units_analyze_c.restype = ctypes.c_void_p
             lib.btl_units_analyze_c.argtypes = [
                 ctypes.c_void_p,
@@ -74,6 +80,57 @@ def get_lib():
             lib.btl_units_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
+
+
+def _charmap_args(charmap):
+    """(counts, values, width, min_key, max_key) of a loader.CharMap for
+    the C entry points, with the arrays kept alive by the caller."""
+    if charmap is None:
+        return None, None, 0, 0, 0
+    return (np.ascontiguousarray(charmap.counts, np.int32),
+            np.ascontiguousarray(charmap.values, np.int32),
+            charmap.values.shape[1], charmap.min_key, charmap.max_key)
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p) if a is not None else None
+
+
+def prep_sp_batch(
+    docs: list[bytes],
+    n_sym: int,
+    sym2iw: np.ndarray,
+    use_raw_bytes: bool,
+    no_dummy_prefix: bool,
+    charmap=None,  # loader.CharMap or None
+):
+    """Native prep of a batch of documents into doc rows (prep.cpp
+    btl_prep_sp_batch; JAX native/__init__.py:75-130): decode, dummy
+    prefix, charmap, whitespace squeeze, dense input weights.
+
+    Returns (x_iw int32 (B, n_sym), -1 past the length; is_spm bool (B,
+    n_sym), the raw symbol is ▁; lengths int32 (B,); status uint8 (B,): 0
+    ok, 1 invalid input, 2 over n_sym symbols; rows of status 1 and 2 are
+    empty)."""
+    lib = get_lib()
+    B = len(docs)
+    blob = b"".join(docs)
+    doc_off = np.zeros(B + 1, np.int64)
+    np.cumsum([len(d) for d in docs], out=doc_off[1:])
+    x = np.empty((B, n_sym), np.int32)
+    spm = np.empty((B, n_sym), np.uint8)
+    lengths = np.empty(B, np.int32)
+    status = np.empty(B, np.uint8)
+    sym2iw = np.ascontiguousarray(sym2iw, np.int32)
+    cc, cv, cm_width, cm_min, cm_max = _charmap_args(charmap)
+    rc = lib.btl_prep_sp_batch(
+        ctypes.c_char_p(blob), _ptr(doc_off), B, int(use_raw_bytes),
+        int(no_dummy_prefix), _ptr(cc), _ptr(cv), cm_width, cm_min, cm_max,
+        _ptr(sym2iw), len(sym2iw), n_sym, _ptr(x), _ptr(spm), _ptr(lengths),
+        None, _ptr(status),
+    )
+    assert rc == 0, "btl_prep_sp_batch failed"
+    return x, spm.astype(bool), lengths, status
 
 
 class NativeUnits:
@@ -203,16 +260,8 @@ def units_analyze(
     doc_off = np.zeros(B + 1, np.int64)
     np.cumsum([len(d) for d in docs], out=doc_off[1:])
     sym2iw = np.ascontiguousarray(sym2iw, np.int32)
-    if charmap is not None:
-        cm_counts = np.ascontiguousarray(charmap.counts, np.int32)
-        cm_values = np.ascontiguousarray(charmap.values, np.int32)
-        cm_width = charmap.values.shape[1]
-        cm_min, cm_max = charmap.min_key, charmap.max_key
-        cc = cm_counts.ctypes.data_as(ctypes.c_void_p)
-        cv = cm_values.ctypes.data_as(ctypes.c_void_p)
-    else:
-        cc = cv = None
-        cm_width = cm_min = cm_max = 0
+    cm_counts, cm_values, cm_width, cm_min, cm_max = _charmap_args(charmap)
+    cc, cv = _ptr(cm_counts), _ptr(cm_values)
     counts = np.zeros(7, np.int64)
     handle = lib.btl_units_analyze_c(
         cache._handle if cache is not None else None,

@@ -19,10 +19,16 @@ versions follow the JAX package's scatter (CPU) formulation line for line,
 so the tests hold them to it, and ``chip_smoke.py`` holds the kernels to
 them on the card.
 
-Not ported in this slice (they raise NotImplementedError, see ROADMAP A5):
-the comb-table walk used when the vocabulary trie is too large
-(ops/tables.py::build_trie_table returns None), and the ``rank_by_id``
-merges mode (BPE_OPT_WITH_MERGES with a non-negative rank).
+The walk takes the vocabulary trie when ops/tables.py::build_trie_table
+built one, else the comb table (a vocabulary whose trie is too large).  A
+BPE_OPT_WITH_MERGES model whose ranks are all negative runs in merge-priority
+mode (trie finals numbered by priority); any other merges model runs in rank
+mode: the walk records each match's rank and the resolve sorts on it first.
+Two places differ from the JAX package on purpose (ROADMAP.md section C): the
+comb lookup takes no transition when ``base[s] + c`` lies outside the table
+(JAX clamps it, bpe.py:307), and the rank key orders floats as the reference
+compares them (:func:`float_desc_key`; JAX's ``_float_desc_key``, bpe.py:181,
+puts every rank >= +0.0 after every negative one).
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ from .. import kernels
 from .tables import CombTable
 
 INT32_MAX = 2**31 - 1
+INT32_MIN = -(2**31)
 L_REC = 32  # walk depth when no length class caps it (bpe.py:234)
-ROADMAP_A5 = "ROADMAP.md queue A item 5"
 
 
 @dataclass(frozen=True)
@@ -191,55 +197,95 @@ def _walk_depth(tables: BpeDeviceTables, lw: int | None) -> int:
     return min(L, L_REC) if lw is None else min(lw, L)
 
 
-def _walk_supported(tables: BpeDeviceTables, spm_iw: int):
+def rank_mode(tables: BpeDeviceTables) -> bool:
+    """A merges model outside merge-priority mode: the walk records ranks
+    (bpe.py:319-324) and the resolve sorts on them (bpe.py:470, :570)."""
+    return tables.with_merges and tables.prio2id is None
+
+
+def _check_spm(spm_iw: int) -> None:
     if spm_iw < 0:
         # x_iw uses -1 for "no symbol": a negative ▁ weight would mark it
         raise ValueError(f"spm_iw must be the input weight of ▁, got {spm_iw}")
-    if tables.trie_next is None:
-        raise NotImplementedError(
-            "comb-table BPE walk (no vocabulary trie) is not ported yet: "
-            + ROADMAP_A5)
-    if tables.with_merges and tables.prio2id is None:
-        raise NotImplementedError(
-            "rank_by_id merges mode is not ported yet: " + ROADMAP_A5)
 
 
 def _walk_plain(tables, x_iw, lengths, spm_iw: int, LW: int, overflow: bool,
                 reads=None):
-    """Plain version of K1: blingfire_tpu/ops/bpe.py::_walk_impl, trie mode;
-    ``reads`` (a ``kernels.Reads``) notes the trie entries it reads."""
+    """Plain version of K1: blingfire_tpu/ops/bpe.py::_walk_impl in trie or
+    comb mode, with the comb lookup guarded; ``reads`` (a ``kernels.Reads``)
+    notes the table entries it reads.  m_rank holds each match's rank (0.0
+    where there is none) in rank mode and is None otherwise."""
     B, N = x_iw.shape
     dev = x_iw.device
-    pos = torch.arange(N, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    pos = torch.arange(N, dtype=i32, device=dev)
     valid = pos[None, :] < lengths[:, None]
-    pad = torch.full((B, LW + 1), -1, dtype=torch.int32, device=dev)
+    pad = torch.full((B, LW + 1), -1, dtype=i32, device=dev)
     x_pad = torch.cat([x_iw, pad], dim=1)
-    posl = torch.arange(N + LW + 1, dtype=torch.int32, device=dev)
+    posl = torch.arange(N + LW + 1, dtype=i32, device=dev)
     spm_or_end = (x_pad == spm_iw) | (posl[None, :] >= lengths[:, None])
-    trie = tables.trie_next
-    size = trie.shape[0]
-    A, V = tables.trie_a, tables.trie_v
-    state = torch.where(valid & (x_iw >= 0), tables.trie_root, -1).to(torch.int32)
-    packs = []
+    use_trie = tables.trie_next is not None
+    rank = rank_mode(tables)
+    init = tables.trie_root if use_trie else 0  # comb: state 0 is initial
+    state = torch.where(valid & (x_iw >= 0), init, -1).to(i32)
+    sum_ow = torch.zeros((B, N), dtype=i32, device=dev)
+    nkeys = tables.ids_tab.shape[0]
+    packs, ranks = [], []
     for d in range(LW):
         c = x_pad[:, d : d + N]
-        flat = (state.clamp(min=0).long() * A + c.clamp(min=0).long()).clamp(0, size - 1)
         live = (state >= 0) & (c >= 0)
-        ns = torch.where(live, trie[flat], -1)
         if reads is not None:
             reads.step(live)
-            reads.note("trie_next", trie, flat, live)
-        fin = (ns >= 0) & (ns < V)
-        mid = ns.clamp(min=0)
-        nxt_spm = spm_or_end[:, d + 1 : d + 1 + N].to(torch.int32)
+        if use_trie:
+            trie, A, V = tables.trie_next, tables.trie_a, tables.trie_v
+            flat = (state.clamp(min=0).long() * A + c.clamp(min=0).long()
+                    ).clamp(0, trie.shape[0] - 1)
+            ns = torch.where(live, trie[flat], -1)
+            fin = (ns >= 0) & (ns < V)
+            mid = ns.clamp(min=0)
+            if reads is not None:
+                reads.note("trie_next", trie, flat, live)
+            if rank:
+                rid = mid.clamp(max=V - 1).long()
+                rk = tables.rank_by_id[rid]
+                if reads is not None:
+                    reads.note("rank_by_id", tables.rank_by_id, rid, fin)
+        else:
+            # the guard: no transition when the probe lies outside the
+            # table (JAX clamps it into the table, bpe.py:307)
+            s_safe = state.clamp(min=0).long()
+            raw = tables.base[s_safe].long() + c.clamp(min=0).long()
+            inb = (raw >= 0) & (raw < tables.n_slots)
+            slot = raw.clamp(0, tables.n_slots - 1)
+            hit = live & inb & (tables.owner[slot] == state)
+            ns = torch.where(hit, tables.nxt[slot], -1)
+            sum_ow = sum_ow + torch.where(hit, tables.ow[slot], 0)
+            fin = (ns >= 0) & tables.final[ns.clamp(min=0).long()]
+            key = sum_ow.clamp(0, nkeys - 1).long()
+            mid = tables.ids_tab[key]
+            if rank:
+                rk = tables.ranks_tab[key]
+            if reads is not None:
+                reads.note("base", tables.base, s_safe, live)
+                reads.note("owner", tables.owner, slot, live & inb)
+                reads.note("nxt", tables.nxt, slot, hit)
+                reads.note("ow", tables.ow, slot, hit)
+                reads.note("final", tables.final, ns.clamp(min=0).long(), ns >= 0)
+                reads.note("ids_tab", tables.ids_tab, key, fin)
+                if rank:
+                    reads.note("ranks_tab", tables.ranks_tab, key, fin)
+        nxt_spm = spm_or_end[:, d + 1 : d + 1 + N].to(i32)
         packs.append(torch.where(fin, mid | (nxt_spm << 27), -1))
+        if rank:
+            ranks.append(torch.where(fin, rk, 0.0))
         state = ns
     m_pack = torch.stack(packs)
+    m_rank = torch.stack(ranks) if rank else None
     if overflow:
         slot_overflow = state >= 0
     else:
         slot_overflow = torch.zeros((B, N), dtype=torch.bool, device=dev)
-    return m_pack, slot_overflow
+    return m_pack, m_rank, slot_overflow
 
 
 def bpe_walk(
@@ -250,13 +296,16 @@ def bpe_walk(
     lw: int | None = None,  # walk-depth cap (unit-length class)
     bounded: bool = False,  # caller guarantees no match exceeds lw
 ):
-    """WALK: returns (m_pack int32 (LW, B, N), slot_overflow bool (B, N)).
+    """WALK: returns (m_pack int32 (LW, B, N), m_rank float32 (LW, B, N) or
+    None, slot_overflow bool (B, N)).
 
     m_pack[d, b, p] is the match of length d+1 starting at p (-1 = none):
-    bits 0..19 token id, bit 27 set when the next symbol is ▁ or the end.
+    bits 0..19 token id, bit 27 set when the next symbol is ▁ or the end;
+    m_rank[d, b, p] its rank, in rank mode only (:func:`rank_mode`).
     Replaces blingfire_tpu/ops/bpe.py::_walk_impl (bpe.py:242, jit :793);
-    ``is_spm`` is derived from ``x_iw`` (the fold of dedup derive_spm)."""
-    _walk_supported(tables, spm_iw)
+    ``is_spm`` is derived from ``x_iw`` (the fold of dedup derive_spm): for
+    a model whose alphabet lacks ▁, pass a weight no symbol has."""
+    _check_spm(spm_iw)
     LW = _walk_depth(tables, lw)
     overflow = tables.max_len > LW and not bounded
     if not kernels.on_card(x_iw):
@@ -264,21 +313,50 @@ def bpe_walk(
     B, N = x_iw.shape
     kernels.check(x_iw, torch.int32, (B, N), "x_iw")
     kernels.check(lengths, torch.int32, (B,), "lengths")
-    m_pack = torch.empty((LW, B, N), dtype=torch.int32, device=x_iw.device)
-    slot_overflow = torch.empty((B, N), dtype=torch.bool, device=x_iw.device)
+    dev = x_iw.device
+    m_pack = torch.empty((LW, B, N), dtype=torch.int32, device=dev)
+    m_rank = (torch.empty((LW, B, N), dtype=torch.float32, device=dev)
+              if rank_mode(tables) else None)
+    slot_overflow = torch.empty((B, N), dtype=torch.bool, device=dev)
     if B == 0:
-        return m_pack, slot_overflow
-    trie = tables.trie_next
+        return m_pack, m_rank, slot_overflow
+    t = tables
+    trie = t.trie_next
+    rank_by_id = t.rank_by_id if trie is not None else None
     kernels.launch(
-        "bpe_walk", x_iw.device,
-        x_iw.data_ptr(), lengths.data_ptr(), trie.data_ptr(), trie.shape[0],
-        B, N, LW, tables.trie_a, tables.trie_v, tables.trie_root, int(spm_iw),
-        int(overflow), m_pack.data_ptr(), slot_overflow.data_ptr(),
+        "bpe_walk", dev,
+        x_iw.data_ptr(), lengths.data_ptr(),
+        trie.data_ptr() if trie is not None else None,
+        trie.shape[0] if trie is not None else 0,
+        t.base.data_ptr(), t.owner.data_ptr(), t.nxt.data_ptr(),
+        t.ow.data_ptr(), t.final.data_ptr(), t.ids_tab.data_ptr(),
+        t.ranks_tab.data_ptr(),
+        rank_by_id.data_ptr() if rank_by_id is not None else None,
+        t.base.shape[0], t.n_slots, t.ids_tab.shape[0],
+        B, N, LW, t.trie_a, t.trie_v, t.trie_root, int(spm_iw),
+        int(overflow), m_pack.data_ptr(),
+        m_rank.data_ptr() if m_rank is not None else None,
+        slot_overflow.data_ptr(),
     )
-    return m_pack, slot_overflow
+    return m_pack, m_rank, slot_overflow
 
 
 # --------------------------------------------------------------- K2 resolve
+
+
+def float_desc_key(r: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 ranks: ascending keys are descending ranks, in
+    the reference's order (…_bpe_with_merges_t.h:229,247): -0.0 ties +0.0,
+    and +0.0 (an unknown run's rank) comes before every negative rank.
+
+    Replaces blingfire_tpu/ops/bpe.py::_float_desc_key (bpe.py:181), which
+    maps -0.0 to the first key and every rank >= +0.0 after every negative
+    one (ROADMAP.md section C item 5).  -0.0 becomes +0.0, the sign-magnitude
+    bits become an ordered int32 (``bits >= 0 ? bits : bits ^ 0x7FFFFFFF``),
+    and NOT reverses the order."""
+    bits = r.contiguous().view(torch.int32)
+    bits = torch.where(bits == INT32_MIN, 0, bits)
+    return ~torch.where(bits >= 0, bits, bits ^ INT32_MAX)
 
 
 def _filter_plain(tables, m_pack, x_iw, lengths, spm_iw: int):
@@ -325,10 +403,11 @@ def _filter_plain(tables, m_pack, x_iw, lengths, spm_iw: int):
     return survive, run_start, run_end, anomaly, valid
 
 
-def _resolve_plain(tables, m_pack, slot_overflow, x_iw, lengths, spm_iw: int,
-                   unk_id: int, a_max: int):
+def _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
+                   spm_iw: int, unk_id: int, a_max: int):
     """Plain version of K2: blingfire_tpu/ops/bpe.py::_resolve_impl, scatter
-    (CPU) branch, trie modes without rank keys."""
+    (CPU) branch; in rank mode the arcs sort on (:func:`float_desc_key` of
+    the rank, id * N + start), the unknown runs' rank being +0.0."""
     LR, B, N = m_pack.shape
     dev = m_pack.device
     i32 = torch.int32
@@ -368,7 +447,16 @@ def _resolve_plain(tables, m_pack, slot_overflow, x_iw, lengths, spm_iw: int,
     c_id = compact(ids, 0)
     c_valid = compact(avalid, False)
     ckey2 = torch.where(c_valid, c_id * N + c_start, INT32_MAX)
-    s_idx = torch.sort(ckey2, dim=1, stable=True).indices
+    if m_rank is not None:
+        ranks = torch.cat([flat(m_rank), torch.zeros((B, N), dtype=torch.float32,
+                                                      device=dev)], dim=1)
+        key_rank = torch.where(c_valid, float_desc_key(compact(ranks, 0.0)),
+                               INT32_MAX)
+        # (key_rank, ckey2) lexicographic as one int64
+        skey = key_rank.long() * (1 << 32) + (ckey2.long() - INT32_MIN)
+    else:
+        skey = ckey2
+    s_idx = torch.sort(skey, dim=1, stable=True).indices
     s_start = c_start.gather(1, s_idx)
     s_end = c_end.gather(1, s_idx)
     s_id = c_id.gather(1, s_idx)
@@ -427,6 +515,7 @@ def _resolve_plain(tables, m_pack, slot_overflow, x_iw, lengths, spm_iw: int,
 def bpe_resolve(
     tables: BpeDeviceTables,
     m_pack: torch.Tensor,  # int32 (LR, B, N) from bpe_walk
+    m_rank: torch.Tensor | None,  # float32 (LR, B, N) in rank mode, else None
     slot_overflow: torch.Tensor,  # bool (B, N)
     x_iw: torch.Tensor,  # int32 (B, N)
     lengths: torch.Tensor,  # int32 (B,)
@@ -439,14 +528,22 @@ def bpe_resolve(
 
     Replaces blingfire_tpu/ops/bpe.py::_resolve_impl (bpe.py:340, jit :794)
     with the fallback flags of its scatter branch
-    (slot_overflow | arc_overflow | anomaly)."""
-    if spm_iw < 0:
-        raise ValueError(f"spm_iw must be the input weight of ▁, got {spm_iw}")
+    (slot_overflow | arc_overflow | anomaly), and the rank key of the
+    reference (:func:`float_desc_key`)."""
+    _check_spm(spm_iw)
+    if not -(1 << 20) <= unk_id < (1 << 20):
+        # ids < 2^20 and N <= 1024 keep the key id * N + start inside int32,
+        # where the kernel's (id, start) order and the plain version's agree
+        raise ValueError(f"unk_id {unk_id} does not fit 21 bits")
+    if (m_rank is not None) != rank_mode(tables):
+        raise ValueError("m_rank must be given in rank mode and only there")
     if not kernels.on_card(m_pack):
-        return _resolve_plain(tables, m_pack, slot_overflow, x_iw, lengths,
-                              spm_iw, unk_id, a_max)
+        return _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw,
+                              lengths, spm_iw, unk_id, a_max)
     LR, B, N = m_pack.shape
     kernels.check(m_pack, torch.int32, (LR, B, N), "m_pack")
+    if m_rank is not None:
+        kernels.check(m_rank, torch.float32, (LR, B, N), "m_rank")
     kernels.check(slot_overflow, torch.bool, (B, N), "slot_overflow")
     kernels.check(x_iw, torch.int32, (B, N), "x_iw")
     kernels.check(lengths, torch.int32, (B,), "lengths")
@@ -464,7 +561,8 @@ def bpe_resolve(
     p2i = tables.prio2id
     kernels.launch(
         "bpe_resolve", dev,
-        m_pack.data_ptr(), slot_overflow.data_ptr(), x_iw.data_ptr(),
+        m_pack.data_ptr(), m_rank.data_ptr() if m_rank is not None else None,
+        slot_overflow.data_ptr(), x_iw.data_ptr(),
         lengths.data_ptr(), p2i.data_ptr() if p2i is not None else None,
         B, N, LR, a_max, int(spm_iw), int(unk_id), tables.id_offset,
         int(tables.fast), tables.trie_v,
@@ -485,7 +583,7 @@ def bpe_segment(
     bounded: bool = False,
 ):
     """Walk then resolve: (ids, starts, ends, counts, fallback)."""
-    m_pack, slot_overflow = bpe_walk(tables, x_iw, lengths, spm_iw, lw=lw,
-                                     bounded=bounded)
-    return bpe_resolve(tables, m_pack, slot_overflow, x_iw, lengths, spm_iw,
-                       unk_id, a_max)
+    m_pack, m_rank, slot_overflow = bpe_walk(tables, x_iw, lengths, spm_iw,
+                                             lw=lw, bounded=bounded)
+    return bpe_resolve(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
+                       spm_iw, unk_id, a_max)

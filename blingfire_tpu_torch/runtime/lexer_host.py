@@ -38,6 +38,7 @@ from ..models.loader import Model
 from ..ops import lexer as lexer_ops
 from ..ops.tables import build_comb_table_cached
 from . import metrics
+from .host import decode_utf8
 from .lexer import LexerEngine
 
 # span widths of the launches: the longest document of the seeded 32 MiB
@@ -46,57 +47,6 @@ from .lexer import LexerEngine
 BUCKETS = (64, 256, 1024, 4096)
 LAUNCH_BYTES = 64 << 20  # rows in and planes out of one launch
 MEMO_MAX = 300_000  # spans the memo keeps across calls (lexer_host.py:108)
-
-
-def decode_utf8(data: bytes) -> tuple[np.ndarray, np.ndarray] | None:
-    """Strict UTF-8 -> (code points, byte offsets), or None when invalid: a
-    copy of blingfire_tpu/runtime/host.py::decode_utf8, the vectorized
-    FAStrUtf8ToArray (FAUtf8Utils.cpp:199-288)."""
-    if data[:3] == b"\xef\xbb\xbf":
-        data = data[3:]
-        base = 3
-    else:
-        base = 0
-    b = np.frombuffer(data, np.uint8)
-    n = len(b)
-    if n == 0:
-        return np.empty(0, np.int32), np.empty(0, np.int32)
-    is_lead1 = b < 0x80
-    is_lead2 = (b & 0xE0) == 0xC0
-    is_lead3 = (b & 0xF0) == 0xE0
-    is_lead4 = (b & 0xF8) == 0xF0
-    is_cont = (b & 0xC0) == 0x80
-    lead = is_lead1 | is_lead2 | is_lead3 | is_lead4
-    if not (lead | is_cont).all():
-        return None
-    sizes = np.where(is_lead1, 1, np.where(is_lead2, 2, np.where(is_lead3, 3, 4)))
-    starts = np.flatnonzero(lead)
-    if len(starts) == 0 or starts[0] != 0:
-        return None
-    sz = sizes[starts]
-    if (starts + sz != np.append(starts[1:], n)).any():
-        return None
-    b32 = b.astype(np.int32)
-    cp = np.where(
-        is_lead1[starts],
-        b32[starts],
-        np.where(
-            is_lead2[starts],
-            b32[starts] & 0x1F,
-            np.where(is_lead3[starts], b32[starts] & 0x0F, b32[starts] & 0x07),
-        ),
-    )
-    for k in (1, 2, 3):
-        sel = sz > k
-        idx = np.minimum(starts + k, n - 1)
-        cp = np.where(sel, (cp << 6) | (b32[idx] & 0x3F), cp)
-    # shortest form + surrogate checks
-    minv = np.array([0, 0, 0x80, 0x800, 0x10000], np.int32)
-    if (cp < minv[sz]).any() or (cp > 0x10FFFF).any():
-        return None
-    if ((cp & np.int32(-2048)) == 0xD800).any():  # surrogate range mask 0xFFFFF800
-        return None
-    return cp, (starts + base).astype(np.int32)
 
 
 @dataclass

@@ -1,5 +1,5 @@
 # Copy of blingfire_tpu/runtime/metrics.py (Counters and stage only; the
-# JAX profiler hook is dropped).
+# JAX profiler hook is dropped; Counters.oracle_docs is the port's).
 """Observability: throughput counters and per-stage host timers."""
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ class Counters:
     docs_in: int = 0
     tokens_out: int = 0
     fallback_docs: int = 0
+    # fallback documents the native runtime did not answer (the scalar
+    # oracle took them)
+    oracle_docs: int = 0
     chunked_docs: int = 0
     invalid_docs: int = 0
     stage_seconds: dict = field(default_factory=lambda: defaultdict(float))
@@ -32,6 +35,7 @@ class Counters:
             "docs_in": self.docs_in,
             "tokens_out": self.tokens_out,
             "fallback_docs": self.fallback_docs,
+            "oracle_docs": self.oracle_docs,
             "chunked_docs": self.chunked_docs,
             "invalid_docs": self.invalid_docs,
             "batches": self.batches,

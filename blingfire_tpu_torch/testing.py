@@ -1,5 +1,6 @@
-"""Seeded gpt2-shaped byte-BPE, xlnet-shaped unigram-LM and bert-shaped
-WordPiece models and a corpus for the tests and chip_smoke.py.
+"""Seeded gpt2-shaped byte-BPE, xlnet-shaped unigram-LM, SentencePiece-BPE-
+shaped merges and bert-shaped WordPiece models and a corpus for the tests
+and chip_smoke.py.
 
 Not on the main path.  The gpt2-shaped model is laid out as the dict
 compiler lays out gpt2 (compiler/dict.py::vocab_from_hf_gpt2): byte mode,
@@ -21,7 +22,9 @@ WordPiece model (:func:`bert_shaped_model_bytes`) covers the corpus's word
 list with whole words, prefixes and ``##`` pieces.  The syllab-shaped W2H
 hyphenation model (:func:`syllab_shaped_model_bytes`) is built from seeded
 patterns with syllab.bin's settings; :func:`corpus_words` turns the corpus
-into its traffic.
+into its traffic.  The SentencePiece-BPE-shaped model
+(:func:`spm_bpe_shaped_model_bytes`) has pieces that span two words, so it
+is not chunk-safe.
 """
 
 from __future__ import annotations
@@ -300,6 +303,102 @@ def xlnet_shaped_model_bytes(n: int = XLNET_VOCAB, seed: int = 0,
         charmap=xlnet_charmap(),
     )
     return compile_dict_model(spec)
+
+
+SPM_BPE_PAIRS = 300  # ▁w1▁w2 pieces of frequent word pairs
+
+
+def spm_bpe_shaped_entries(n: int = XLNET_VOCAB, seed: int = 0,
+                           n_cjk: int = 3000, n_pairs: int = SPM_BPE_PAIRS
+                           ) -> list[VocabEntry]:
+    """``n`` BPE-with-merges entries, ids from 3 with score -k for the k-th
+    (see :func:`spm_bpe_shaped_model_bytes`)."""
+    rng = np.random.default_rng(seed + 2)
+    alphabet = _xlnet_alphabet(rng, n_cjk)
+    singles = [(SPM,)] + [(c,) for c in alphabet]
+    assert n > len(singles) + n_pairs + 200, "vocabulary too small for its alphabet"
+    # numbers and punctuation pairs, as in the unigram model
+    pool = ([tuple(str(v).encode()) for v in range(10, 1000)]
+            + [(SPM,) + tuple(str(v).encode()) for v in range(1000)]
+            + [(a, b) for a in _PUNCT for b in _PUNCT])
+    k = min(len(pool), (n - len(singles) - n_pairs) // 4)
+    pool = [pool[i] for i in np.sort(rng.permutation(len(pool))[:k])]
+    # pairs of the corpus's frequent words, as split_by_whitespace=false
+    # training learns them; at most 16 symbols, so the walk stays 16 deep.
+    # A first word is one of the 32 most frequent, a second of ranks 16-79:
+    # two pieces chain (w1 w2, w2 w3) only through ranks 16-31, which keeps
+    # the documents where JAX's fast-forward flags an anomaly rare
+    top = [tuple(w) for w in word_list(seed, CORPUS_WORDS)[:80]]
+    pairs: dict[tuple[int, ...], None] = {}
+    while len(pairs) < n_pairs:
+        a, b = top[int(rng.integers(0, 32))], top[int(rng.integers(16, 80))]
+        if a != b and len(a) + len(b) <= 14:
+            pairs.setdefault((SPM,) + a + (SPM,) + b, None)
+    pieces: dict[tuple[int, ...], None] = dict.fromkeys(pool)
+    want = n - len(singles) - n_pairs
+    for w in word_list(seed, max(want // 3, 64)):
+        t = tuple(w)
+        for j in range(1, len(t) + 1):
+            pieces.setdefault((SPM,) + t[:j], None)
+        for m in (2, 3, 4):
+            if len(t) > m:
+                pieces.setdefault(t[-m:], None)
+        if len(pieces) >= want:
+            break
+    assert len(pieces) >= want, "word list too short"
+    # merge order: shorter pieces first, each length in frequency order,
+    # and the cross-word pairs after every piece of one word.  A pair that
+    # outranked a longer piece of its second word could be claimed across
+    # the start where that piece fast-forwarded, and leave a symbol no arc
+    # covers; the reference's emission walk then never ends
+    # (oracle.py::_bpe_resolve), and the native runtime's neither
+    multi = sorted(list(pieces)[:want], key=len) + sorted(pairs, key=len)
+    return [VocabEntry(ch, XLNET_RESERVED + k, -float(k))
+            for k, ch in enumerate(multi + singles)]
+
+
+def spm_bpe_shaped_model_bytes(n: int = XLNET_VOCAB, seed: int = 0,
+                               n_cjk: int = 3000,
+                               n_pairs: int = SPM_BPE_PAIRS) -> bytes:
+    """Compiled .bin image of a SentencePiece-BPE-shaped merges model.
+
+    Laid out as a SentencePiece BPE export is: char mode,
+    ``TokAlgo.BPE_OPT_WITH_MERGES``, id offset 0, ids 0-2 reserved (unknown
+    = 0), then the pieces from id 3: multi-symbol pieces first in merge
+    order (shorter first, the pairs of words last), the single characters
+    last, each with score -k
+    for the k-th (the first -0.0, so the largest rank is not below 0 and
+    the model runs in rank mode).  The pieces are the xlnet-shaped
+    alphabet's characters and ▁, numbers and punctuation pairs, ▁ + each
+    prefix of a frequent word and the word's endings, and ``n_pairs`` pieces
+    ▁w1▁w2 of frequent word pairs: those have an internal ▁, so the model
+    is not chunk-safe and takes the classic doc-row path.  The charmap is
+    :func:`xlnet_charmap`.  With ``n_cjk=3000`` its vocabulary trie is over
+    the trie budget and the walk takes the comb table; with ``n_cjk=420`` it
+    takes the trie."""
+    spec = DictModelSpec(
+        entries=spm_bpe_shaped_entries(n, seed, n_cjk, n_pairs),
+        tok_algo=TokAlgo.BPE_OPT_WITH_MERGES,
+        id_offset=0,
+        use_byte_encoding=False,
+        charmap=xlnet_charmap(),
+    )
+    return compile_dict_model(spec)
+
+
+def rank_fault_model_bytes() -> bytes:
+    """Five merges entries on which the JAX package's rank key differs from
+    the reference (ROADMAP.md section C item 5): ▁ -0.0 (id 3), a -2, b -3,
+    aq -4, ▁a -5; q is in the alphabet but never a piece alone, so a run of
+    q's is unknown, and its arc's rank +0.0 must sort first.  The reference
+    gives ``"aqq b"`` -> [7, 0, 3, 5]."""
+    S, a, b, q = SPM, 0x61, 0x62, 0x71
+    vocab = [((S,), -0.0), ((a,), -2.0), ((b,), -3.0), ((a, q), -4.0),
+             ((S, a), -5.0)]
+    return compile_dict_model(DictModelSpec(
+        entries=[VocabEntry(ch, 3 + i, sc) for i, (ch, sc) in enumerate(vocab)],
+        tok_algo=TokAlgo.BPE_OPT_WITH_MERGES, id_offset=0,
+        use_byte_encoding=False))
 
 
 def unigram_edge_rows():

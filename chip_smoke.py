@@ -75,8 +75,34 @@ Phases, each of which must pass (any failure exits non-zero):
               scalar HyphEngine, and longer words give None;
  20. kernels-h K10 against its plain version on the rows of every launch
               (every bucket width) of one batch of the distinct words;
-              tolerance 0.
-Times per launch come from CUDA events after warm-up.  Each kernel is
+              tolerance 0;
+ 21. model-b  two seeded SentencePiece-BPE-shaped merges models (32,000
+              entries, char mode, the xlnet-shaped alphabet with 3,000 and
+              with 420 CJK characters, pair pieces ▁w1▁w2, so not
+              chunk-safe): their alphabet, automaton, comb slots and table
+              mode (comb or trie), rank mode, chunk-safety;
+ 22. main-b   the classic doc-row path as a user drives it:
+              SpTokenizer(comb model, max_doc_symbols=1024, device="cuda")
+              then encode_corpus_flat over the corpus, a first call, a
+              second and a profiled one: K1 and K2 must launch; every
+              document must equal the native runtime's TextToIds, 500
+              sampled ones the scalar oracle, and no fallback document may
+              reach the oracle; then one call with no chunk rows (every
+              document past the window to the native runtime, as JAX
+              does for such a model), timed, with the same ids;
+ 23. main-br  the trie model the same way over the corpus's first 4 MiB:
+              K3, K1 and K2 must launch; every document equals the native
+              runtime;
+ 24. main-bc  the gpt2-shaped model's encode_batch(docs, dedup=False) over
+              the first 4 MiB at max_doc_symbols=128, so documents past 128
+              symbols are split into chunk rows: its ids must equal main's;
+ 25. kernels-b K1 (comb + rank, trie + rank) and K2 (rank) against their
+              plain versions on every launch (every row width) of the
+              classic rows of one uncached 4 MiB batch, and on the rows of
+              the rank-fault model; tolerance 0.
+Fallback documents of every path go to the native runtime; a run fails if
+one reaches the scalar oracle (Counters.oracle_docs).  Times per launch come
+from CUDA events after warm-up.  Each kernel is
 measured on each path that runs it (kernels.PATHS), over the regions (or
 length classes) of one uncached 4 MiB batch in that path's main-path table
 mode (scatter_trie: one launch over the whole table, the BPE trie or the
@@ -111,15 +137,19 @@ CMP_BYTES = 4 << 20  # corpus prefix whose packed rows the kernels are held on
 ORACLE_DOCS = 500  # documents checked against the scalar oracle
 DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
 UNI_MODES = ("dense", "wide", "comb")
+CLASSIC_DOC = 1024  # the classic path's window: K2's widest row
+BPE_MODES = {"comb": 3000, "trie": 420}  # table mode -> CJK characters
 # kernel -> (source, the TPU kernel it replaces on each path)
 SOURCES = {
     "scatter_trie": ("blingfire_tpu_torch/kernels/csrc/scatter_trie.cu",
                      {"bpe": "blingfire_tpu/ops/bpe.py:161",
                       "wordpiece": "blingfire_tpu/ops/lexer.py:179"}),
     "bpe_walk": ("blingfire_tpu_torch/kernels/csrc/bpe_walk.cu",
-                 {"bpe": "blingfire_tpu/ops/bpe.py:242"}),
+                 {"bpe": "blingfire_tpu/ops/bpe.py:242",
+                  "bpe_classic": "blingfire_tpu/ops/bpe.py:242"}),
     "bpe_resolve": ("blingfire_tpu_torch/kernels/csrc/bpe_resolve.cu",
-                    {"bpe": "blingfire_tpu/ops/bpe.py:340"}),
+                    {"bpe": "blingfire_tpu/ops/bpe.py:340",
+                     "bpe_classic": "blingfire_tpu/ops/bpe.py:340"}),
     "pack_out_compact": ("blingfire_tpu_torch/kernels/pack_triton.py",
                          {"bpe": "blingfire_tpu/runtime/dedup.py:218",
                           "unigram": "blingfire_tpu/runtime/dedup.py:218"}),
@@ -388,9 +418,11 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         LW = bpe_ops._walk_depth(tables, lw)
         ovf = tables.max_len > LW and not bounded
         # K1
-        m_k, so_k = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw, bounded=bounded)
+        m_k, _mr, so_k = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw,
+                                          bounded=bounded)
         r = reads()
-        m_p, so_p = bpe_ops._walk_plain(tables, x, ln, spm, LW, ovf, reads=r)
+        m_p, _pr, so_p = bpe_ops._walk_plain(tables, x, ln, spm, LW, ovf,
+                                             reads=r)
         torch.cuda.synchronize()
         s = stats[("bpe_walk", "bpe")]
         s["err"] = max(s["err"], max_abs_err([(m_k, m_p), (so_k, so_p)]))
@@ -402,15 +434,17 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
             + r.table_bytes()
         s["ops"] += LW * B * N
         # K2 on the kernel's walk output
-        r_k = bpe_ops.bpe_resolve(tables, m_k, so_k, x, ln, spm, unk, a_max)
-        r_p = bpe_ops._resolve_plain(tables, m_k, so_k, x, ln, spm, unk, a_max)
+        r_k = bpe_ops.bpe_resolve(tables, m_k, None, so_k, x, ln, spm, unk,
+                                  a_max)
+        r_p = bpe_ops._resolve_plain(tables, m_k, None, so_k, x, ln, spm, unk,
+                                     a_max)
         torch.cuda.synchronize()
         s = stats[("bpe_resolve", "bpe")]
         s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
         s["ms"] += cuda_ms(lambda: bpe_ops.bpe_resolve(
-            tables, m_k, so_k, x, ln, spm, unk, a_max), 50)
+            tables, m_k, None, so_k, x, ln, spm, unk, a_max), 50)
         s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
-            tables, m_k, so_k, x, ln, spm, unk, a_max), 2, warm=1)
+            tables, m_k, None, so_k, x, ln, spm, unk, a_max), 2, warm=1)
         surv, rstart, _re, _an, _v = bpe_ops._filter_plain(tables, m_k, x, ln, spm)
         n_arcs = (surv.sum((0, 2)) + rstart.sum(1)).clamp(max=a_max).double()
         lg = torch.log2(n_arcs.clamp(min=2))
@@ -432,8 +466,9 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
     def once():
         bpe_ops.scatter_trie(ti, tv, size)
         for x, ln, lw, bounded in regions:
-            m, so = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw, bounded=bounded)
-            r = bpe_ops.bpe_resolve(tables, m, so, x, ln, spm, unk, a_max)
+            m, mr, so = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw,
+                                         bounded=bounded)
+            r = bpe_ops.bpe_resolve(tables, m, mr, so, x, ln, spm, unk, a_max)
             dedup.pack_out_compact(r[0], r[1], r[3], r[4])
 
     profiled_device_ms(once, stats)
@@ -894,6 +929,144 @@ def hyph_kernels(hy, words, hyph_ops, dev) -> dict:
     return stats
 
 
+def native_ids(rt, h, d: bytes) -> list[int]:
+    """The native runtime's TextToIds of one document (unknown id 0)."""
+    import ctypes
+
+    cap = len(d) + 16
+    arr = np.empty(cap, np.int32)
+    n = rt.TextToIds(ctypes.c_void_p(h), d, len(d),
+                     arr.ctypes.data_as(ctypes.c_void_p), cap, 0)
+    check(0 <= n <= cap, f"the native TextToIds gave {n} for a document")
+    return arr[:n].tolist()
+
+
+def check_native(tok, native, docs, ids, bounds, label: str) -> None:
+    """Every document's ids equal the native runtime's TextToIds."""
+    rt, h = native.get_runtime(), tok._native_fallback_handle()
+    check(h is not None, "the native runtime rejected the model")
+    t0 = time.perf_counter()
+    bad = [i for i, d in enumerate(docs)
+           if native_ids(rt, h, d) != ids[bounds[i] : bounds[i + 1]].tolist()]
+    check(not bad, f"{label}: {len(bad)} docs differ from the native runtime, "
+          f"first {bad[:5]}")
+    log(f"[{label}] all {len(docs)} docs equal the native runtime's TextToIds "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
+    """Phase 25: K1 and K2 against their plain versions on the rows of every
+    launch (every row width) of the classic rows of one uncached CMP_BYTES
+    batch, in each table mode of ``toks`` (mode -> SpTokenizer; the stats of
+    the main path's mode, comb, go to the JSON line, the others to the log),
+    and on the rows of the rank-fault model ``fault``."""
+    sub = corpus_prefix(docs, CMP_BYTES)
+    by_mode = {}
+    for mode, tok in toks.items():
+        t = tok.tables
+        spm, a_max = tok._spm_iw, tok.a_max
+        x, ln, _status = tok._prep_batch(sub)
+        keep = np.flatnonzero(ln > 0)
+        x, ln = x[keep], ln[keep]
+        stats = new_stats(("bpe_walk", "bpe_resolve"), "bpe_classic")
+        launches = []
+        for w, idx in tok._row_groups(ln):
+            step = launch_rows(tok, w, None)
+            for lo in range(0, len(idx), step):
+                part = idx[lo : lo + step]
+                launches.append((
+                    torch.from_numpy(np.ascontiguousarray(x[part, :w])).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(ln[part])).to(dev)))
+        for xd, ld in launches:
+            B, W = xd.shape
+            LW = bpe_ops._walk_depth(t, None)
+            m_k, mr_k, so_k = bpe_ops.bpe_walk(t, xd, ld, spm)
+            r = reads()
+            m_p, mr_p, so_p = bpe_ops._walk_plain(t, xd, ld, spm, LW, False,
+                                                  reads=r)
+            torch.cuda.synchronize()
+            s = stats[("bpe_walk", "bpe_classic")]
+            s["err"] = max(s["err"], max_abs_err(
+                [(m_k, m_p), (mr_k, mr_p), (so_k, so_p)]))
+            del m_p, mr_p
+            k_ms = cuda_ms(lambda: bpe_ops.bpe_walk(t, xd, ld, spm), 20)
+            s["ms"] += k_ms
+            s["plain_ms"] += cuda_ms(lambda: bpe_ops._walk_plain(
+                t, xd, ld, spm, LW, False), 2, warm=1)
+            # rows in; m_pack, m_rank, slot_overflow out; table entries once
+            s["bytes"] += B * W * 4 + B * 4 + 2 * LW * B * W * 4 + B * W \
+                + r.table_bytes()
+            s["ops"] += LW * B * W
+            r_k = bpe_ops.bpe_resolve(t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max)
+            r_p = bpe_ops._resolve_plain(t, m_k, mr_k, so_k, xd, ld, spm, 0,
+                                         a_max)
+            torch.cuda.synchronize()
+            s = stats[("bpe_resolve", "bpe_classic")]
+            s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
+            del r_p
+            v_ms = cuda_ms(lambda: bpe_ops.bpe_resolve(
+                t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max), 20)
+            s["ms"] += v_ms
+            s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
+                t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max), 1, warm=1)
+            surv, rstart, _re, _an, _v = bpe_ops._filter_plain(t, m_k, xd, ld,
+                                                               spm)
+            n_match = surv.sum((0, 2)).clamp(max=a_max)
+            n_arcs = (surv.sum((0, 2)) + rstart.sum(1)).clamp(max=a_max).double()
+            lg = torch.log2(n_arcs.clamp(min=2))
+            # m_pack in full (the filter reads every slot), m_rank of the
+            # kept matches only (bpe_resolve.cu reads no other), slot_overflow,
+            # x, lengths in; three lanes, counts, flags out
+            s["bytes"] += LW * B * W * 4 + int(n_match.sum()) * 4 + B * W \
+                + B * W * 4 + B * 4 + 3 * B * W * 4 + B * 4 + B
+            s["ops"] += LW * B * W + int((n_arcs * lg).sum()) \
+                + 2 * int(n_arcs.sum())
+            log(f"[kernels-b] {mode} rank: {B} rows of width {W}: walk and "
+                f"resolve equal their plain versions; ms per launch walk "
+                f"{k_ms:.5f} resolve {v_ms:.5f}; fallback rows "
+                f"{int(r_k[4].sum())}; table bytes read {r.table_bytes()} in "
+                f"{r.steps} live lane-steps")
+            del m_k, mr_k, so_k, r_k, surv, rstart
+
+        def once():
+            for xd, ld in launches:
+                m, mr, so = bpe_ops.bpe_walk(t, xd, ld, spm)
+                bpe_ops.bpe_resolve(t, m, mr, so, xd, ld, spm, 0, a_max)
+
+        profiled_device_ms(once, stats)
+        for (name, _path), s in stats.items():
+            bound, bound_by = bound_of(s)
+            log(f"[kernels-b] {mode} {name}: {len(launches)} launches, "
+                f"{s['ms']:.4f} ms, device {s['device_ms']} ms, plain "
+                f"{s['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+                f"max_abs_err {s['err']}")
+        by_mode[mode] = stats
+    # the rank-fault rows: unknown q runs that a real piece ends inside
+    fdocs = [b"aqq b", b"b aqqq", b"baqqb", b"aq b", b"ab a"]
+    fx, fl, _status = fault._prep_batch(fdocs)
+    fx, fl = torch.from_numpy(fx).to(dev), torch.from_numpy(fl).to(dev)
+    ft = fault.tables
+    m, mr, so = bpe_ops.bpe_walk(ft, fx, fl, fault._spm_iw)
+    pm, pmr, pso = bpe_ops._walk_plain(ft, fx, fl, fault._spm_iw,
+                                       bpe_ops._walk_depth(ft, None), False)
+    r_k = bpe_ops.bpe_resolve(ft, m, mr, so, fx, fl, fault._spm_iw, 0,
+                              fault.a_max)
+    r_p = bpe_ops._resolve_plain(ft, m, mr, so, fx, fl, fault._spm_iw, 0,
+                                 fault.a_max)
+    torch.cuda.synchronize()
+    err_f = max(max_abs_err([(m, pm), (mr, pmr), (so, pso)]),
+                max_abs_err(zip(r_k, r_p)))
+    got = [r_k[0][i, : r_k[3][i]].tolist() for i in range(len(fdocs))]
+    want = [fault._oracle.text_to_ids(d) for d in fdocs]
+    check(got == want, f"K2 on the rank-fault rows gave {got}, the oracle {want}")
+    log(f"[kernels-b] rank-fault rows: K1 and K2 equal their plain versions "
+        f"(max_abs_err {err_f}) and the oracle: {got[:3]}")
+    stats = by_mode["comb"]
+    for k, s in stats.items():
+        s["err"] = max([by_mode[m][k]["err"] for m in by_mode] + [err_f])
+    return stats
+
+
 def sum_or_none(vals):
     """The sum, or None when a value is missing."""
     vals = list(vals)
@@ -1025,12 +1198,18 @@ def main() -> int:
     for name in kernels.PATHS["bpe"]:
         check(main["launches"].get(name, 0) > 0, f"kernel {name} never launched")
     check(main["counters"].fallback_docs > 0, "the BPE path had no fallback docs")
+    check(main["counters"].oracle_docs == 0,
+          "a fallback document reached the scalar oracle")
     ids, bounds = main["ids"], main["bounds"]
     V = len(model.seg.i2info_ids)
     check(len(ids) and ids.min() >= -1 and ids.max() < V,
           f"ids out of range: {ids.min()}..{ids.max()}")
     check_oracle(lambda d: tok._oracle.text_to_ids(d, unk_id=0), docs, ids,
                  bounds, n_edge, "main")
+    # main-bc holds the classic rows of this model to these
+    sub = corpus_prefix(docs, CMP_BYTES)
+    main_sub_ids = [ids[bounds[i] : bounds[i + 1]].tolist()
+                    for i in range(len(sub))]
     del ids, bounds
 
     # ------------------------------------------- 5. kernels vs plain versions
@@ -1064,6 +1243,8 @@ def main() -> int:
     ids, bounds = main_u["ids"], main_u["bounds"]
     check(ids.min() >= 0 and ids.max() < len(model_u.seg.i2info_ids) + 3,
           f"ids out of range: {ids.min()}..{ids.max()}")
+    check(main_u["counters"].oracle_docs == 0,
+          "a fallback document reached the scalar oracle")
     check_oracle(lambda d: tok_u._oracle.text_to_ids(d, unk_id=0), docs, ids,
                  bounds, n_edge, "main-u")
     del ids, bounds
@@ -1108,7 +1289,6 @@ def main() -> int:
                  bounds, n_edge, "main-w")
 
     # --------------------------------------------------------- 11. main-wc
-    sub = corpus_prefix(docs, CMP_BYTES)
     saved = lexer_ops.DENSE_MAX_ENTRIES
     kernels.reset_launches()
     lexer_ops.DENSE_MAX_ENTRIES = -1
@@ -1268,10 +1448,127 @@ def main() -> int:
     stats.update(hyph_kernels(hy, words, hyph_ops, dev))
     del words, hy
 
+    # --------------------------------------------------------- 21. model-b
+    models_b = {}
+    for mode, n_cjk in BPE_MODES.items():
+        t0 = time.perf_counter()
+        blob_b = testing.spm_bpe_shaped_model_bytes(n_cjk=n_cjk)
+        models_b[mode] = load_bytes(blob_b)
+        log(f"[model-b] spm-BPE-shaped, {n_cjk} CJK characters: "
+            f"{len(models_b[mode].seg.i2info_ids)} entries, {len(blob_b)} B "
+            f"image, {time.perf_counter() - t0:.1f} s")
+
+    def describe(tok, mode: str, t_init: float) -> None:
+        t = tok.tables
+        table = ("comb" if t.trie_next is None
+                 else f"trie ({t.trie_next.numel()} int32)")
+        log(f"[model-b] {mode}: SpTokenizer init {t_init:.3f} s: A "
+            f"{tok.comb.n_iws}, {tok.comb.n_states} states, "
+            f"{tok.comb.n_slots} comb slots, table {table}, rank mode "
+            f"{bpe_ops.rank_mode(t)}, chunk-safe {tok._chunk_safe}, max_len "
+            f"{t.max_len}, a_max {tok.a_max}")
+        check(bpe_ops.rank_mode(t) and not tok._chunk_safe
+              and (t.trie_next is None) == (mode == "comb"),
+              f"the {mode} model is not in its table and rank modes")
+
+    # ---------------------------------------------------------- 22. main-b
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tok_b = SpTokenizer(models_b["comb"], max_doc_symbols=CLASSIC_DOC,
+                        device="cuda")
+    torch.cuda.synchronize()
+    describe(tok_b, "comb", time.perf_counter() - t0)
+    main_b = run_main(tok_b, docs, "main-b", kernels, metrics)
+    for name in kernels.PATHS["bpe_classic"]:
+        check(main_b["launches"].get(name, 0) > 0,
+              f"kernel {name} never launched on main-b")
+    c_b = main_b["counters"]
+    n_docs = len(docs)
+    log(f"[main-b] {c_b.fallback_docs} docs to the native runtime "
+        f"(device fallback share {c_b.fallback_docs / n_docs:.6f}), "
+        f"{c_b.chunked_docs} docs past {CLASSIC_DOC} symbols split into chunk "
+        f"rows, {c_b.invalid_docs} invalid; served by the card "
+        f"{1 - c_b.fallback_docs / n_docs:.6f}; oracle docs {c_b.oracle_docs}")
+    check(c_b.oracle_docs == 0, "a fallback document reached the scalar oracle")
+    ids, bounds = main_b["ids"], main_b["bounds"]
+    check_native(tok_b, native, docs, ids, bounds, "main-b")
+    check_oracle(lambda d: tok_b._oracle.text_to_ids(d, unk_id=0), docs, ids,
+                 bounds, n_edge, "main-b")
+    # the design without chunk rows for a model that is not chunk-safe, as
+    # JAX's encode_corpus has it: every document past the window to the
+    # native runtime; the same ids, and its time beside the calls above
+    tok_b._encode_overflow = lambda over, unk_id: [None] * len(over)
+    c_n = metrics.Counters()
+    t0 = time.perf_counter()
+    ids_n, bounds_n = tok_b.encode_corpus_flat(docs, counters=c_n)
+    t_n = time.perf_counter() - t0
+    del tok_b._encode_overflow
+    check(np.array_equal(ids_n, ids) and np.array_equal(bounds_n, bounds),
+          "long documents through the native runtime gave other ids")
+    n_bytes = sum(map(len, docs))
+    log(f"[main-b] without chunk rows (long documents to the native runtime): "
+        f"{t_n:.3f} s, {n_bytes / t_n:.0f} B/s; {c_n.fallback_docs} docs to "
+        f"the native runtime (served by the card "
+        f"{1 - c_n.fallback_docs / n_docs:.6f}), {c_n.chunked_docs} chunked; "
+        f"stage seconds {dict(c_n.stage_seconds)}; the same ids")
+    del ids, bounds, ids_n, bounds_n
+
+    # --------------------------------------------------------- 23. main-br
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tok_br = SpTokenizer(models_b["trie"], max_doc_symbols=CLASSIC_DOC,
+                         device="cuda")
+    torch.cuda.synchronize()
+    describe(tok_br, "trie", time.perf_counter() - t0)
+    c_br = metrics.Counters()
+    t0 = time.perf_counter()
+    ids, bounds = tok_br.encode_corpus_flat(sub, counters=c_br)
+    t_br = time.perf_counter() - t0
+    main_br = {"launches": dict(kernels.launches)}
+    log(f"[main-br] encode_corpus_flat over {len(sub)} docs, "
+        f"{sum(map(len, sub))} B: {t_br:.3f} s, {c_br.fallback_docs} fallback "
+        f"docs, {c_br.chunked_docs} chunked, oracle docs {c_br.oracle_docs}; "
+        f"stage seconds {dict(c_br.stage_seconds)}; launches "
+        f"{main_br['launches']}")
+    for name in ("scatter_trie",) + tuple(kernels.PATHS["bpe_classic"]):
+        check(main_br["launches"].get(name, 0) > 0,
+              f"kernel {name} never launched on main-br")
+    check(c_br.oracle_docs == 0, "a fallback document reached the scalar oracle")
+    check_native(tok_br, native, sub, ids, bounds, "main-br")
+    del ids, bounds
+
+    # --------------------------------------------------------- 24. main-bc
+    kernels.reset_launches()
+    tok_bc = SpTokenizer(model, max_doc_symbols=128, device="cuda")
+    g = metrics.global_counters()
+    before = (g.chunked_docs, g.fallback_docs, g.oracle_docs)
+    t0 = time.perf_counter()
+    got = tok_bc.encode_batch(sub, dedup=False)
+    t_bc = time.perf_counter() - t0
+    main_bc = {"launches": dict(kernels.launches)}
+    log(f"[main-bc] encode_batch(dedup=False) over {len(sub)} docs: "
+        f"{t_bc:.3f} s, {g.chunked_docs - before[0]} docs split into chunk "
+        f"rows, {g.fallback_docs - before[1]} fallback docs; launches "
+        f"{main_bc['launches']}")
+    check(g.oracle_docs == before[2], "a fallback document reached the oracle")
+    check(g.chunked_docs > before[0], "no document was split into chunks")
+    check(got == main_sub_ids, "the classic rows gave other ids than main's")
+    log(f"[main-bc] the ids of all {len(sub)} docs equal main's")
+    del got, main_sub_ids, tok_bc
+
+    # ------------------------------------------------------- 25. kernels-b
+    fault = SpTokenizer(load_bytes(testing.rank_fault_model_bytes()),
+                        max_doc_symbols=16, device="cuda")
+    stats.update(classic_kernels({"comb": tok_b, "trie": tok_br}, fault, docs,
+                                 bpe_ops, dedup.launch_rows, dev))
+    del tok_b, tok_br
+
     path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
                  ("wordpiece", main_wc), ("words", lex_runs["words"]),
                  ("sentences", lex_runs["sentences"]),
-                 ("wp_lexer", main_lw), ("hyph", main_h))
+                 ("wp_lexer", main_lw), ("hyph", main_h),
+                 ("bpe_classic", main_b))
     rows = kernel_rows(stats, path_runs, kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """The port's corpus path, SpTokenizer(..., device="cpu").encode_corpus_flat,
 against the JAX package's on tests/corpus.py::full_corpus(), for a
-gpt2-shaped byte-BPE model and an xlnet-shaped unigram-LM model: ids and
-bounds must be identical.  A small batch_docs makes several batches share
+gpt2-shaped byte-BPE model and an xlnet-shaped unigram-LM model, and for two
+models off the unit path: ids and bounds must be identical.  A small batch_docs makes several batches share
 the unit cache, and some documents fall back to the host path."""
 
 from __future__ import annotations
@@ -63,7 +63,9 @@ def test_unigram_encode_corpus_flat_matches_jax():
     assert got == [ids[bounds[i]:bounds[i + 1]].tolist() for i in range(40)]
 
 
-def test_models_outside_the_slice_raise():
+def test_models_off_the_unit_path_match_jax():
+    """Models that are not chunk-safe take the classic doc rows; they raised
+    before PR 6.  Their encode_corpus_flat equals JAX's."""
     from blingfire_tpu_torch.compiler.dict import (
         DictModelSpec, VocabEntry, compile_dict_model)
     from blingfire_tpu_torch.formats.consts import TokAlgo
@@ -75,20 +77,21 @@ def test_models_outside_the_slice_raise():
     blob = compile_dict_model(DictModelSpec(
         entries=entries, tok_algo=TokAlgo.BPE_OPT, id_offset=-1,
         use_byte_encoding=True))
-    tok = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cpu")
-    assert not tok._chunk_safe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tok.encode_corpus_flat([b"a b"])
-    # the same for a unigram model: served, but not through the unit path
+    # the same for a unigram model
     entries = testing.xlnet_shaped_entries(2000, n_cjk=20)
     entries.append(VocabEntry((0x61, 0x2581, 0x62), 3 + len(entries), -20.0))
     uni = compile_dict_model(DictModelSpec(
         entries=entries, tok_algo=TokAlgo.DEFAULT,
         charmap=testing.xlnet_charmap()))
-    tok = SpTokenizer(load_bytes(uni), max_doc_symbols=128, device="cpu")
-    assert not tok.is_bpe and not tok._chunk_safe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tok.encode_corpus_flat([b"a b"])
+    docs = _docs() + [b"a b a ba b", b"xa bx " * 40]
+    for model, is_bpe in ((blob, True), (uni, False)):
+        tok = SpTokenizer(load_bytes(model), max_doc_symbols=128, device="cpu")
+        assert tok.is_bpe == is_bpe and not tok._chunk_safe
+        ids, bounds = tok.encode_corpus_flat(docs, batch_docs=64)
+        jtok = JaxSpTokenizer(jax_load_bytes(model), max_doc_symbols=128)
+        jids, jbounds = jtok.encode_corpus_flat(docs, batch_docs=64)
+        np.testing.assert_array_equal(bounds, np.asarray(jbounds))
+        np.testing.assert_array_equal(ids, np.asarray(jids))
 
 
 @pytest.mark.parametrize("n_docs", [0, 1, 7, 40])

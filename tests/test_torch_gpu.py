@@ -1,5 +1,6 @@
 """The port's kernels against their plain versions on the card: the four of
-the byte-BPE path, K5 unigram_walk and K6 unigram_viterbi in every row
+the byte-BPE path, K1 and K2 in the comb and rank modes of the classic
+doc-row path (and that path against the CPU), K5 unigram_walk and K6 unigram_viterbi in every row
 region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
@@ -23,10 +24,13 @@ import torch
 from corpus import full_corpus
 
 from blingfire_tpu_torch import kernels, native, testing
+from blingfire_tpu_torch.compiler.dict import (DictModelSpec, VocabEntry,
+                                               compile_dict_model)
+from blingfire_tpu_torch.formats.consts import TokAlgo
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
 from blingfire_tpu_torch.ops.tables import build_comb_table
-from blingfire_tpu_torch.runtime import dedup
+from blingfire_tpu_torch.runtime import dedup, host, metrics
 from blingfire_tpu_torch.runtime.host import SpTokenizer
 from blingfire_tpu_torch.runtime.hyph import HyphTpu
 from blingfire_tpu_torch.runtime.lexer_host import (LexerTpu, WordsTpu,
@@ -79,11 +83,13 @@ def test_walk_resolve_pack_kernels_match_plain(region, lw, bounded):
     x, ln = regions[region]
     t = tok.tables
     LW = bpe._walk_depth(t, lw)
-    m, so = bpe.bpe_walk(t, x, ln, spm_iw, lw=lw, bounded=bounded)
-    pm, pso = bpe._walk_plain(t, x, ln, spm_iw, LW, t.max_len > LW and not bounded)
+    m, mr, so = bpe.bpe_walk(t, x, ln, spm_iw, lw=lw, bounded=bounded)
+    pm, pmr, pso = bpe._walk_plain(t, x, ln, spm_iw, LW,
+                                   t.max_len > LW and not bounded)
+    assert mr is None and pmr is None
     assert torch.equal(m, pm) and torch.equal(so, pso)
-    res = bpe.bpe_resolve(t, m, so, x, ln, spm_iw, 0, tok.a_max)
-    pres = bpe._resolve_plain(t, m, so, x, ln, spm_iw, 0, tok.a_max)
+    res = bpe.bpe_resolve(t, m, None, so, x, ln, spm_iw, 0, tok.a_max)
+    pres = bpe._resolve_plain(t, m, None, so, x, ln, spm_iw, 0, tok.a_max)
     for a, b in zip(res, pres):
         assert torch.equal(a, b)
     ids, st, _en, counts, fb = res
@@ -438,3 +444,130 @@ def test_hyph_tpu_on_the_card_matches_cpu():
     assert kernels.launches["hyph_segment"] > 0
     assert got == _hyph("small", "cpu").process_batch(words)
     assert got[words.index([ord(c) for c in "'ab"])] == [-1, -1, -1]
+
+
+# ------------------------------------------- the classic doc rows (PR 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _spm_tok(comb: bool, device: str, n_pairs: int = 40) -> SpTokenizer:
+    """The SentencePiece-BPE-shaped merges model (rank mode) at 2,000
+    entries; ``comb`` declines its trie."""
+    blob = testing.spm_bpe_shaped_model_bytes(2000, n_cjk=20, n_pairs=n_pairs)
+    saved = host.build_trie_table_cached
+    if comb:
+        host.build_trie_table_cached = lambda *a: None
+    try:
+        return SpTokenizer(load_bytes(blob), max_doc_symbols=1024, device=device)
+    finally:
+        host.build_trie_table_cached = saved
+
+
+def _spm_docs():
+    return [d.encode("utf-8") for d in full_corpus()] + \
+        testing.zipf_corpus(200_000)[len(testing.EDGE_CASES):]
+
+
+def _k1_k2_match_plain(tok, x, ln, lw=None, bounded=False, unk_id=0):
+    """One K1 and one K2 launch against their plain versions, all on the
+    card; the tables' mode decides the kernels' modes."""
+    t = tok.tables
+    LW = bpe._walk_depth(t, lw)
+    n = kernels.launches["bpe_walk"], kernels.launches["bpe_resolve"]
+    m, mr, so = bpe.bpe_walk(t, x, ln, tok._spm_iw, lw=lw, bounded=bounded)
+    pm, pmr, pso = bpe._walk_plain(t, x, ln, tok._spm_iw, LW,
+                                   t.max_len > LW and not bounded)
+    assert torch.equal(m, pm) and torch.equal(so, pso)
+    assert (mr is None) == (not bpe.rank_mode(t))
+    assert mr is None or torch.equal(mr, pmr)
+    res = bpe.bpe_resolve(t, m, mr, so, x, ln, tok._spm_iw, unk_id, tok.a_max)
+    pres = bpe._resolve_plain(t, m, mr, so, x, ln, tok._spm_iw, unk_id,
+                              tok.a_max)
+    assert (kernels.launches["bpe_walk"], kernels.launches["bpe_resolve"]) \
+        == (n[0] + 1, n[1] + 1)
+    for a, b in zip(res, pres):
+        assert torch.equal(a, b)
+    return res
+
+
+@pytest.mark.parametrize("comb", [False, True], ids=["trie_rank", "comb_rank"])
+def test_bpe_kernels_in_rank_mode_on_classic_rows(comb):
+    """K1 and K2 on the classic rows (width 1024, a_max 4096) of a model
+    that is not chunk-safe, and on the rows of the rank-fault model."""
+    _need_cuda()
+    tok = _spm_tok(comb, "cuda")
+    assert bpe.rank_mode(tok.tables) and (tok.tables.trie_next is None) == comb
+    x, ln, _status = tok._prep_batch(_spm_docs())
+    keep = ln > 0
+    xd, ld = torch.from_numpy(x[keep]).cuda(), torch.from_numpy(ln[keep]).cuda()
+    res = _k1_k2_match_plain(tok, xd, ld)
+    assert int(res[3].sum()) > 0
+    _k1_k2_match_plain(tok, xd[:, :256].contiguous(), ld.clamp(max=256))
+    ft = SpTokenizer(load_bytes(testing.rank_fault_model_bytes()),
+                     max_doc_symbols=16, device="cuda")
+    fx, fl, _status = ft._prep_batch([b"aqq b", b"b aqqq", b"baqqb", b"aq b"])
+    _k1_k2_match_plain(ft, torch.from_numpy(fx).cuda(),
+                       torch.from_numpy(fl).cuda(), unk_id=7)
+
+
+@pytest.mark.parametrize("comb", [False, True], ids=["trie_rank", "comb_rank"])
+@pytest.mark.parametrize("region,lw,bounded", REGIONS)
+def test_bpe_kernels_in_rank_mode_on_unit_regions(comb, region, lw, bounded):
+    _need_cuda()
+    tok = _spm_tok(comb, "cuda", n_pairs=0)
+    assert tok._chunk_safe
+    nu = native.units_analyze(_spm_docs(), 128, tok._sym2iw, tok._spm_iw,
+                              False, False, tok.seg.charmap)
+    b = [0, nu.split_rows1, nu.split_rows, nu.n_rows]
+    x = torch.from_numpy(nu.px[b[region]:b[region + 1]].copy()).cuda()
+    ln = torch.from_numpy(nu.plen[b[region]:b[region + 1]].copy()).cuda()
+    nu.close()
+    _k1_k2_match_plain(tok, x, ln, lw=lw, bounded=bounded)
+
+
+def test_bpe_comb_walk_kernel_takes_no_transition_below_slot_0():
+    """K1 in comb mode on a model whose root owns slot 0 with base -1: a
+    lone ``a`` at a start has no transition (JAX's clamp takes b's)."""
+    _need_cuda()
+    a, b, c, d = 0x61, 0x62, 0x63, 0x64
+    vocab = [(b,), (c,), (d,), (b, a), (c, a), (d, a, b)]
+    blob = compile_dict_model(DictModelSpec(
+        entries=[VocabEntry(ch, 3 + i, -float(i)) for i, ch in enumerate(vocab)],
+        tok_algo=TokAlgo.BPE_OPT_WITH_MERGES, id_offset=0,
+        use_byte_encoding=False))
+    host.build_trie_table_cached, saved = (lambda *a: None,
+                                           host.build_trie_table_cached)
+    try:
+        tok = SpTokenizer(load_bytes(blob), max_doc_symbols=16, device="cuda")
+    finally:
+        host.build_trie_table_cached = saved
+    assert testing.slot0_probes(tok.comb) == (0, [0])
+    docs = [b"a", b"ab", b"ba", b"cab", b"dab a"]
+    x, ln, _status = tok._prep_batch(docs)
+    res = _k1_k2_match_plain(tok, torch.from_numpy(x).cuda(),
+                             torch.from_numpy(ln).cuda())
+    got = [res[0][i, : res[3][i]].tolist() for i in range(len(docs))]
+    assert got == [tok._oracle.text_to_ids(d) for d in docs]
+
+
+@pytest.mark.parametrize("comb", [False, True], ids=["trie_rank", "comb_rank"])
+def test_classic_path_on_the_card_matches_cpu(comb):
+    _need_cuda()
+    docs = _spm_docs()
+    kernels.reset_launches()
+    c = metrics.Counters()
+    ids, bounds = _spm_tok(comb, "cuda").encode_corpus_flat(docs, counters=c)
+    assert kernels.launches["bpe_walk"] > 0 and kernels.launches["bpe_resolve"] > 0
+    assert c.oracle_docs == 0 and c.chunked_docs > 0
+    cids, cbounds = _spm_tok(comb, "cpu").encode_corpus_flat(docs)
+    assert (ids == cids).all() and (bounds == cbounds).all()
+
+
+def test_encode_batch_without_dedup_on_the_card_matches_cpu():
+    _need_cuda()
+    blob = testing.gpt2_shaped_model_bytes(2000, n_long=40)
+    docs = _spm_docs()
+    gpu = SpTokenizer(load_bytes(blob), max_doc_symbols=128)
+    cpu = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cpu")
+    got = gpu.encode_batch(docs, dedup=False)
+    assert got == cpu.encode_batch(docs, dedup=False) == gpu.encode_batch(docs)

@@ -30,7 +30,12 @@ new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat",
        "blingfire_tpu_torch.compiler.lexbin",
        "blingfire_tpu_torch.native.gen_default_models",
        "blingfire_tpu_torch.ops.hyph", "blingfire_tpu_torch.runtime.hyph",
-       "blingfire_tpu_torch.compiler.hyphpats"}
+       "blingfire_tpu_torch.compiler.hyphpats",
+       # the classic doc-row path: new or changed in it
+       "blingfire_tpu_torch.ops.bpe", "blingfire_tpu_torch.runtime.host",
+       "blingfire_tpu_torch.runtime.dedup", "blingfire_tpu_torch.native",
+       "blingfire_tpu_torch.kernels", "blingfire_tpu_torch.runtime.metrics",
+       "blingfire_tpu_torch.testing"}
 assert new <= set(names), names
 """
 
