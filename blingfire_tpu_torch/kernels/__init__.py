@@ -6,11 +6,11 @@ with ctypes.  :func:`build` starts one ``nvcc`` per source, and the
 ``g++`` of the host library and of the native runtime, all at once, so the
 first use pays the slowest single compile.  Libraries land in
 ``build/blingfire_tpu_torch/kernels/``, one per source, named by the source
-and a hash of it and the headers.  The Triton kernel (``pack_triton.py``)
-is compiled by Triton at its first launch.
+and a hash of it and the headers.  The Triton kernels (``pack_triton.py``)
+are compiled by Triton at their first launch.
 
 Every launch goes through :func:`launch` (or :func:`note_launch` for the
-Triton kernel), which adds one to ``launches[name]``: a run can show that
+Triton kernels), which adds one to ``launches[name]``: a run can show that
 its main path went through each kernel.  A C entry point returns the
 ``cudaGetLastError()`` of its launch; a non-zero code raises.
 """
@@ -58,6 +58,8 @@ KERNELS = {
     "hyph_segment": ("hyph_segment.cu", "bf_hyph_segment",
                      [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                       _P, _I, _I, _P]),
+    "shard_stats": ("shard_stats.cu", "bf_shard_stats",
+                    [_P, _I64, _P, _I64, _I64, _I, _P]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -90,6 +92,22 @@ PATHS = {
     "wp_lexer": {"lexer_pass": "cuda"},
     # W2H hyphenation: HyphTpu.process_batch
     "hyph": {"hyph_segment": "cuda"},
+    # the NumPy unit path of a chunk-safe model off the compact lanes (a
+    # window past 1,024 symbols): its packed rows, then K11; the documents
+    # it marks take the classic doc rows
+    "bpe_units_np": {
+        "bpe_walk": "cuda",
+        "bpe_resolve": "cuda",
+        "pack_out": "triton",
+    },
+    "unigram_units_np": {
+        "unigram_walk": "cuda",
+        "unigram_viterbi": "cuda",
+        "pack_out": "triton",
+    },
+    # the data-parallel runners (parallel/mesh.py): each rank's statistics;
+    # their segment kernels are those of the bpe, unigram and wordpiece paths
+    "dp": {"shard_stats": "cuda"},
 }
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
 

@@ -44,6 +44,11 @@ from .tables import CombTable
 INT32_MAX = 2**31 - 1
 INT32_MIN = -(2**31)
 L_REC = 32  # walk depth when no length class caps it (bpe.py:234)
+# K2's limits (kernels/csrc/bpe_resolve.cu): one block a row of at most
+# RESOLVE_MAX_N positions, its arc slab of at most RESOLVE_MAX_ARCS arcs in
+# shared memory.  runtime/host.py keeps every launch inside them.
+RESOLVE_MAX_N = 1024
+RESOLVE_MAX_ARCS = 4096
 
 
 @dataclass(frozen=True)
@@ -547,9 +552,11 @@ def bpe_resolve(
     kernels.check(slot_overflow, torch.bool, (B, N), "slot_overflow")
     kernels.check(x_iw, torch.int32, (B, N), "x_iw")
     kernels.check(lengths, torch.int32, (B,), "lengths")
-    if not (1 <= N <= 1024 and 1 <= LR <= 32 and 1 <= a_max <= 4096):
-        raise ValueError(f"bpe_resolve kernel takes N<=1024, LR<=32, "
-                         f"a_max<=4096; got N={N} LR={LR} a_max={a_max}")
+    if not (1 <= N <= RESOLVE_MAX_N and 1 <= LR <= L_REC
+            and 1 <= a_max <= RESOLVE_MAX_ARCS):
+        raise ValueError(f"bpe_resolve kernel takes N<={RESOLVE_MAX_N}, "
+                         f"LR<={L_REC}, a_max<={RESOLVE_MAX_ARCS}; got N={N} "
+                         f"LR={LR} a_max={a_max}")
     dev = m_pack.device
     out_ids = torch.empty((B, N), dtype=torch.int32, device=dev)
     out_starts = torch.empty((B, N), dtype=torch.int32, device=dev)

@@ -1,25 +1,39 @@
 """Corpus tokenization entry point: port of blingfire_tpu/runtime/host.py
 (the host prep: _ws_table, _is_ws, decode_utf8, PreparedDoc,
 prepare_sp_doc; SpTokenizer: __init__, _compute_chunk_safe, _native_units_ok,
-_prep_batch, _classic_rows, _split_chunks, _encode_overflow,
+_prep_batch, _classic_rows, _split_chunks, _encode_overflow, the NumPy unit
+path of encode_batch and encode_corpus,
 _native_fallback_handle, _fallback_ids, _patch_fallbacks, encode_corpus_flat,
 encode_batch, encode_corpus; _batches_by_bytes and _max_token_len), with
 the batch pipeline and the splice
 of fallback documents that it shares with runtime/wp_hybrid.py
 (``run_pipeline``, ``splice_docs``).
 
-A chunk-safe model whose ids fit the compact lanes takes the unique-unit
-device path (runtime/dedup.py).  Every other model takes the classic doc-row
-path: native prep of each batch into rows of at most ``max_doc_symbols``
-symbols, one walk and resolve (BPE) or walk and Viterbi (unigram) over the
-rows, and documents over the window split at ▁ into chunk rows (for a model
-that is not chunk-safe, only at a ▁ that no vocabulary match crosses).
-Documents the device flags, and documents that no split fits, go to the
-native runtime's TextToIds; its ids are reference-exact, as
+Three routes, as the JAX package's (host.py:540-551, :605-630, :706,
+:789-791):
+
+- a chunk-safe model whose window and ids fit the compact lanes
+  (``UnitRunner.compact_ok``: ``max_doc_symbols`` at most 1,024, ids within
+  21 bits) takes the native unique-unit device path (runtime/dedup.py);
+- any other chunk-safe model takes the NumPy unit path (``UnitRunner.dispatch``
+  and ``collect``, with K11 ``pack_out``), and the documents it marks take the
+  classic doc rows;
+- a model that is not chunk-safe takes the classic doc rows: native prep of
+  each batch, one walk and resolve (BPE) or walk and Viterbi (unigram) over
+  the rows.
+
+Every device row is at most ``row_max`` symbols wide: the window, but for a
+BPE model no more than K2's ``RESOLVE_MAX_N`` = 1,024, and each resolve gets
+at most ``RESOLVE_MAX_ARCS`` = 4,096 arcs (a row with more is flagged).  A
+document longer than ``row_max`` (past the window, or a BPE document past
+1,024 symbols in a wider window) is split at ▁ into chunk rows (for a model
+that is not chunk-safe, only at a ▁ that no vocabulary match crosses), which
+gives the same ids.  Documents the device flags, and documents that no split
+fits, go to the native runtime's TextToIds; its ids are reference-exact, as
 the scalar oracle's are.  The JAX package's fixed batch shapes, its b""
 padding and its power-of-two row counts exist for XLA's compile cache and
 are not ported; the rows of a batch go to the device grouped by width
-(128, 256, ... up to ``max_doc_symbols``), which gives the same ids.
+(128, 256, ... up to ``row_max``), which gives the same ids.
 """
 
 from __future__ import annotations
@@ -240,6 +254,10 @@ class SpTokenizer:
         # arc budget: 4 arcs per position covers realistic text; rows
         # beyond it fall back (host.py:232-237)
         self.a_max = a_max or max_doc_symbols * 4
+        # the widest device row: K2 resolves rows of at most RESOLVE_MAX_N
+        # positions, K6 of at most VITERBI_MAX_N
+        self.row_max = min(self.n_doc, bpe_ops.RESOLVE_MAX_N if self.is_bpe
+                           else uni_ops.VITERBI_MAX_N)
         self._oracle = SpTokenizerOracle(seg)
         self._sym2iw = self.comb.sym2iw
         m = self._sym2iw
@@ -318,7 +336,9 @@ class SpTokenizer:
         return crossed
 
     def _native_units_ok(self) -> bool:
-        """True when the unique-unit device path can serve this model."""
+        """True when the native unique-unit device path can serve this
+        model; a chunk-safe model for which it is False takes the NumPy
+        unit path."""
         return self._chunk_safe and self._unit_runner().compact_ok
 
     # ------------------------------------------------------ the fallback
@@ -374,45 +394,51 @@ class SpTokenizer:
         m = self._sym2iw
         return np.where(syms < len(m), m[np.minimum(syms, len(m) - 1)], -1)
 
-    def _prep_batch(self, docs: list[bytes], force_numpy: bool = False):
+    def _prep_batch(self, docs: list[bytes], force_numpy: bool = False,
+                    with_spm: bool = False):
         """Doc rows of a batch (host.py:400-440): (x_iw int32 (B, n_doc), -1
         past the length; lengths int32 (B,); status uint8 (B,): 0 ok, 1
         invalid input, 2 more than n_doc symbols; rows of status 1 and 2 are
-        empty).  Native prep_sp_batch, or prepare_sp_doc a document with
+        empty), with ``with_spm`` (x_iw, is ▁ bool (B, n_doc), lengths,
+        status).  Native prep_sp_batch, or prepare_sp_doc a document with
         ``force_numpy``."""
         if not force_numpy:
-            x, _spm, lengths, status = native.prep_sp_batch(
+            x, spm, lengths, status = native.prep_sp_batch(
                 docs, self.n_doc, self._sym2iw, self.seg.use_raw_bytes,
                 self.seg.no_dummy_prefix, self.seg.charmap)
-            return x, lengths, status
-        B, N = len(docs), self.n_doc
-        x = np.full((B, N), -1, np.int32)
-        lengths = np.zeros(B, np.int32)
-        status = np.zeros(B, np.uint8)
-        for i, d in enumerate(docs):
-            p = prepare_sp_doc(d, self.seg)
-            n = len(p.syms)
-            if not p.ok or n > N:
-                status[i] = 1 if not p.ok else 2
-                continue
-            x[i, :n] = self._iw_of(p.syms)
-            lengths[i] = n
-        return x, lengths, status
+        else:
+            B, N = len(docs), self.n_doc
+            x = np.full((B, N), -1, np.int32)
+            spm = np.zeros((B, N), bool)
+            lengths = np.zeros(B, np.int32)
+            status = np.zeros(B, np.uint8)
+            for i, d in enumerate(docs):
+                p = prepare_sp_doc(d, self.seg)
+                n = len(p.syms)
+                if not p.ok or n > N:
+                    status[i] = 1 if not p.ok else 2
+                    continue
+                x[i, :n] = self._iw_of(p.syms)
+                spm[i, :n] = p.syms == SP_DELIMITER
+                lengths[i] = n
+        return (x, spm, lengths, status) if with_spm else (x, lengths, status)
 
     def _segment(self, xd, ld, unk_id: int):
         """(ids, counts, fallback) of doc rows on the device: bpe_segment
-        (K1, K2) or unigram_segment (K5, K6), in launches whose walk scratch
-        stays under dedup.SCRATCH_BYTES."""
+        (K1, K2; at most RESOLVE_MAX_ARCS arcs a row, more flags it) or
+        unigram_segment (K5, K6), in launches whose walk scratch stays under
+        dedup.SCRATCH_BYTES."""
         from .dedup import launch_rows
 
         R, W = xd.shape
         step = launch_rows(self, W, None)
+        a_max = min(self.a_max, bpe_ops.RESOLVE_MAX_ARCS)
         outs = []
         for lo in range(0, R, step):
             x, ln = xd[lo : lo + step], ld[lo : lo + step]
             if self.is_bpe:
                 ids, _st, _en, counts, fb = bpe_ops.bpe_segment(
-                    self.tables, x, ln, self._spm_iw, unk_id, self.a_max)
+                    self.tables, x, ln, self._spm_iw, unk_id, a_max)
             else:
                 ids, _st, _en, counts = uni_ops.unigram_segment(
                     self.tables, x, ln, unk_id)
@@ -423,18 +449,20 @@ class SpTokenizer:
         return tuple(torch.cat(p) for p in zip(*outs))
 
     def _row_groups(self, lengths: np.ndarray) -> list[tuple[int, np.ndarray]]:
-        """(width, row indices) of rows of these lengths: each row in the
-        narrowest of 128, 256, ... (and n_doc) that holds it."""
+        """(width, row indices) of rows of these lengths (at most
+        ``row_max``): each row in the narrowest of 128, 256, ... (and
+        row_max) that holds it."""
         widths = [MIN_ROW_WIDTH << k for k in range(8)
-                  if MIN_ROW_WIDTH << k < self.n_doc] + [self.n_doc]
+                  if MIN_ROW_WIDTH << k < self.row_max] + [self.row_max]
         cls = np.searchsorted(widths, lengths)  # first width >= the length
         return [(w, np.flatnonzero(cls == k)) for k, w in enumerate(widths)
                 if (cls == k).any()]
 
     def _classic_rows(self, x: np.ndarray, lengths: np.ndarray, unk_id: int):
         """The classic doc-row device pass (host.py:254-284) over prepped
-        rows of positive length, grouped by width: each group's rows cut to
-        the narrowest of 128, 256, ... (and n_doc) that holds them, which
+        rows of positive length up to ``row_max``, grouped by width: each
+        group's rows cut to the narrowest of 128, 256, ... (and row_max)
+        that holds them, which
         gives the same ids.  Returns a handle for :meth:`_rows_out`, with the
         device work and its device-to-host copies queued."""
         dev = self.device
@@ -484,10 +512,10 @@ class SpTokenizer:
                       ) -> list[tuple[int, int]] | None:
         """Greedy whitespace-safe windowing (host.py:312-329) of a row of n
         symbols at the sorted split positions ``pos`` (its ▁): (start, end)
-        spans of at most n_doc symbols, every span after the first starting
-        at a ▁.  None when a word (or, for a model that is not chunk-safe,
-        a run between uncrossed ▁) exceeds the window."""
-        N = self.n_doc
+        spans of at most row_max symbols, every span after the first
+        starting at a ▁.  None when a word (or, for a model that is not
+        chunk-safe, a run between uncrossed ▁) exceeds the row."""
+        N = self.row_max
         spans: list[tuple[int, int]] = []
         start = 0
         while n - start > N:
@@ -511,7 +539,7 @@ class SpTokenizer:
 
     def _encode_overflow(self, docs: list[bytes], unk_id: int
                          ) -> list[list[int] | None]:
-        """Device ids of documents longer than the window (host.py:331-398):
+        """Device ids of documents longer than ``row_max`` (host.py:331-398):
         prep each whole document, split it at ▁ (:meth:`_split_chunks`),
         run the chunks as rows and join their ids in order.  A model that
         is not chunk-safe splits only at a ▁ that no match crosses
@@ -542,7 +570,7 @@ class SpTokenizer:
                 rows += [x[s:e] for s, e in spans]
         if not rows:
             return results
-        x = np.full((len(rows), self.n_doc), -1, np.int32)
+        x = np.full((len(rows), self.row_max), -1, np.int32)
         lengths = np.array([len(r) for r in rows], np.int32)
         for r, ch in enumerate(rows):
             x[r, : len(ch)] = ch
@@ -556,39 +584,91 @@ class SpTokenizer:
         return results
 
     def _classic_dispatch(self, docs_b: list[bytes], unk_id: int):
-        """Prep a batch and queue its rows' device pass: (state, rows)."""
+        """Prep a batch and queue the device pass of its rows up to
+        ``row_max``: (state, rows)."""
         x, lengths, status = self._prep_batch(docs_b)
-        rows = np.flatnonzero(lengths > 0)
+        rows = np.flatnonzero((lengths > 0) & (lengths <= self.row_max))
         handle = self._classic_rows(x[rows], lengths[rows], unk_id)
-        return (rows, status, handle), len(rows)
+        return (rows, status, lengths, handle), len(rows)
 
     def _classic_collect(self, docs_b: list[bytes], state, unk_id: int, c):
-        """The batch's flat (ids, bounds): the rows' ids, documents over the
-        window through :meth:`_encode_overflow`, and documents the device
-        flags or no window holds through :meth:`_fallback_ids` (timed as
-        the stage "fallback")."""
-        rows, status, handle = state
+        """The batch's flat (ids, bounds) of a :meth:`_classic_dispatch`."""
+        rows, status, lengths, handle = state
         with metrics.stage("collect", c):
             ids, counts, fb = self._rows_out(handle)
             cnt = np.zeros(len(docs_b), np.int64)
             cnt[rows] = counts
             bounds = np.zeros(len(docs_b) + 1, np.int64)
             np.cumsum(cnt, out=bounds[1:])
-            over_idx = np.flatnonzero(status == 2)
+        over = (status == 2) | (lengths > self.row_max)
+        return self._finish(docs_b, ids, bounds, {}, rows[fb], over, status,
+                            unk_id, c)
+
+    def _finish(self, docs_b, ids, bounds, repl, fb_docs, over, status,
+                unk_id: int, c):
+        """A batch's flat (ids, bounds) from the device's ``ids``/``bounds``
+        and the replacements ``repl`` (document -> ids): the documents of
+        the mask ``over`` through :meth:`_encode_overflow` (timed as the
+        stage "chunk"), and documents the device flags (``fb_docs``) or no
+        split holds through :meth:`_fallback_ids` (the stage "fallback")."""
+        with metrics.stage("chunk", c):
+            over_idx = np.flatnonzero(over)
             chunked = self._encode_overflow([docs_b[k] for k in over_idx],
                                             unk_id)
-            repl = {int(k): got for k, got in zip(over_idx, chunked)
-                    if got is not None}
-            c.chunked_docs += len(repl)
+            n_repl = len(repl)
+            repl.update((int(k), got) for k, got in zip(over_idx, chunked)
+                        if got is not None)
+            c.chunked_docs += len(repl) - n_repl
             c.invalid_docs += int((status == 1).sum())
-        need = [int(k) for k in rows[fb]] + [int(k) for k in over_idx
-                                              if int(k) not in repl]
+        need = [int(k) for k in fb_docs] + [int(k) for k in over_idx
+                                            if int(k) not in repl]
         if need:
             with metrics.stage("fallback", c):
                 for k in need:
                     repl[k] = self._fallback_ids(docs_b[k], unk_id, c)
             c.fallback_docs += len(need)
         return splice_docs(ids, bounds, repl) if repl else (ids, bounds)
+
+    # ---------------------------------------------------- the NumPy unit path
+
+    def _units_np_dispatch(self, docs_b: list[bytes], unk_id: int):
+        """Prep a batch and queue the NumPy unit path's device pass
+        (``UnitRunner.dispatch``; host.py:706): (state, rows)."""
+        x, spm, lengths, status = self._prep_batch(docs_b, with_spm=True)
+        st = self._unit_runner().dispatch(x, spm, lengths, unk_id)
+        return (x, lengths, status, st), len(st[4])  # st[4]: the packed rows
+
+    def _units_np_collect(self, docs_b: list[bytes], state, unk_id: int, c):
+        """The batch's flat (ids, bounds) of a :meth:`_units_np_dispatch`:
+        the units' ids, and the documents the unit path marks (a unit past
+        UNIT_MAX, a flagged row) through the classic rows (host.py:755-791),
+        or through :meth:`_finish`'s chunk rows when longer than
+        ``row_max``."""
+        x, lengths, status, st = state
+        c.units_np_batches += 1
+        with metrics.stage("collect", c):
+            ids, bounds, need = self._unit_runner().collect_flat(st)
+            rows = np.flatnonzero(need & (lengths > 0)
+                                  & (lengths <= self.row_max))
+            cids, counts, fb = self._rows_out(
+                self._classic_rows(x[rows], lengths[rows], unk_id))
+            off = np.zeros(len(rows) + 1, np.int64)
+            np.cumsum(counts, out=off[1:])
+            repl = {int(k): cids[off[i] : off[i + 1]].tolist()
+                    for i, k in enumerate(rows) if not fb[i]}
+        over = (status == 2) | (need & (lengths > self.row_max))
+        return self._finish(docs_b, ids, bounds, repl, rows[fb], over, status,
+                            unk_id, c)
+
+    def _route(self, dedup: bool | None = None):
+        """(dispatch, collect) of this model's batch path: the native unit
+        path (None), the NumPy unit path, or the classic doc rows; ``dedup
+        = False`` forces the classic rows."""
+        if dedup is False or not self._chunk_safe:
+            return self._classic_dispatch, self._classic_collect
+        if self._native_units_ok():
+            return None
+        return self._units_np_dispatch, self._units_np_collect
 
     # ------------------------------------------------------- entry points
 
@@ -606,15 +686,18 @@ class SpTokenizer:
         dedup and packing), the device passes of each batch, one
         device-to-host copy per row group, a native stitch on the unit path;
         up to three batches in flight, so host prep overlaps device work.
-        Models off the unit path take the classic doc rows (host.py:540-551,
+        A chunk-safe model off the compact lanes takes the NumPy unit path,
+        a model that is not chunk-safe the classic doc rows (host.py:540-551,
         :673-817)."""
         c = counters or metrics.global_counters()
         docs_b = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
-        if not self._native_units_ok():
+        route = self._route()
+        if route is not None:
+            dispatch_b, collect_b = route
             return run_pipeline(
                 docs_b, batch_docs,
-                lambda chunk: self._classic_dispatch(chunk, unk_id),
-                lambda chunk, st: self._classic_collect(chunk, st, unk_id, c),
+                lambda chunk: dispatch_b(chunk, unk_id),
+                lambda chunk, st: collect_b(chunk, st, unk_id, c),
                 c)
         runner = self._unit_runner()
         # cross-batch unit cache, fresh per call: later batches dispatch
@@ -643,19 +726,20 @@ class SpTokenizer:
     def encode_batch(self, docs: list[bytes | str], unk_id: int = 0,
                      dedup: bool | None = None) -> list[list[int]]:
         """Per-document id lists for one batch (host.py:605-670): the unit
-        path when the model takes it and ``dedup`` is not False, else the
-        classic doc rows."""
+        path (native, or NumPy off the compact lanes) when the model is
+        chunk-safe and ``dedup`` is not False, else the classic doc rows."""
         docs_b = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
         c = metrics.global_counters()
-        if dedup is not False and self._native_units_ok():
+        route = self._route(dedup)
+        if route is None:
             ids, bounds, need, status = self._unit_runner().encode_docs(
                 docs_b, unk_id)
             if need.any():
                 ids, bounds = self._patch_fallbacks(
                     docs_b, ids, bounds, need, status, unk_id, c)
         else:
-            state, _rows = self._classic_dispatch(docs_b, unk_id)
-            ids, bounds = self._classic_collect(docs_b, state, unk_id, c)
+            state, _rows = route[0](docs_b, unk_id)
+            ids, bounds = route[1](docs_b, state, unk_id, c)
         return [ids[bounds[i] : bounds[i + 1]].tolist()
                 for i in range(len(docs_b))]
 

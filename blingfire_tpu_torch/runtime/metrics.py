@@ -1,5 +1,6 @@
 # Copy of blingfire_tpu/runtime/metrics.py (Counters and stage only; the
-# JAX profiler hook is dropped; Counters.oracle_docs is the port's).
+# JAX profiler hook is dropped; Counters.oracle_docs and units_np_batches are
+# the port's).
 """Observability: throughput counters and per-stage host timers."""
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ class Counters:
     # cross-batch unit cache (dedup cumulative over the corpus)
     cache_units: int = 0  # distinct units interned over the run
     dispatched_rows: int = 0  # device rows actually dispatched (cache misses)
+    # batches through the NumPy unit path (a chunk-safe model off the
+    # compact lanes, runtime/dedup.py)
+    units_np_batches: int = 0
 
     def as_dict(self) -> dict:
         total = sum(self.stage_seconds.values())
@@ -41,6 +45,7 @@ class Counters:
             "batches": self.batches,
             "cache_units": self.cache_units,
             "dispatched_rows": self.dispatched_rows,
+            "units_np_batches": self.units_np_batches,
             "stage_seconds": dict(self.stage_seconds),
             "bytes_per_second": self.bytes_in / total if total > 0 else 0.0,
         }

@@ -24,7 +24,8 @@ hyphenation model (:func:`syllab_shaped_model_bytes`) is built from seeded
 patterns with syllab.bin's settings; :func:`corpus_words` turns the corpus
 into its traffic.  The SentencePiece-BPE-shaped model
 (:func:`spm_bpe_shaped_model_bytes`) has pieces that span two words, so it
-is not chunk-safe.
+is not chunk-safe.  :func:`dp_rank` is one rank of the data-parallel tests,
+started with torch.multiprocessing spawn.
 """
 
 from __future__ import annotations
@@ -889,3 +890,116 @@ def shipped_lexer_bytes(name: str) -> bytes:
                         "models_data", f"{name}.bin")
     with open(path, "rb") as f:
         return f.read()
+
+
+def wide_window_docs() -> list[bytes]:
+    """A few dozen documents for a window of 2,048 symbols: the edge cases
+    and Zipfian documents, five of 1,100 to 1,900 bytes, one past 2,048
+    bytes, and two long ones holding a unit past 64 symbols (which the unit
+    path sends to the classic rows)."""
+    zipf = zipf_corpus(300_000)
+    mid = [d for d in zipf if 1100 < len(d) < 1900][:5]
+    run = b" " + LONG_CHARS[:1] * 90 + b" "
+    return (zipf[:24] + mid + [b" ".join(mid)[:2600]]
+            + [mid[0][:500] + run + mid[1], mid[2][:300] + run])
+
+
+# the data-parallel tests' models (test size): kind -> model image
+DP_MODELS = {
+    "gpt2": lambda: gpt2_shaped_model_bytes(2000, n_long=40),
+    "xlnet": lambda: xlnet_shaped_model_bytes(4000, n_cjk=100),
+    "bert": lambda: bert_shaped_model_bytes(2000),
+}
+DP_DOC = 128  # the SpTokenizer window of the data-parallel tests
+
+
+def wp_slabs(wp, docs: list[bytes]) -> list[tuple]:
+    """(bx, bi, lw) of each non-empty length class of ``wp``'s packed rows
+    of ``docs`` (WordPieceHybrid._analyze and _pack, no cache)."""
+    h, u_syms, u_soff, u_fn = wp._analyze(docs)
+    wp._rt.BtlWpFree(h)
+    px, pinit, class_rows, _row, _off = wp._pack(u_syms, u_soff, u_fn)
+    return [(px[lo:hi], pinit[lo:hi], lw) for lo, hi, lw in class_rows
+            if hi > lo]
+
+
+def dp_rank(rank: int, world: int, init_file: str, kind: str,
+            docs: list[bytes], out_dir: str) -> None:
+    """One rank of a gloo group of ``world`` CPU processes joined through
+    ``init_file``: the data-parallel runners of the ``kind`` model of
+    DP_MODELS over ``docs`` (gpt2, xlnet: ShardedSpRunner.run and run_units
+    at a window of DP_DOC; bert: ShardedWpRunner.run_rows on each length
+    class of :func:`wp_slabs`), written to ``out_dir/rank<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from .models.loader import load_bytes
+    from .parallel import mesh
+
+    torch.set_num_threads(1)
+    mesh.init_group("cpu", init_method=f"file://{init_file}", rank=rank,
+                    world_size=world)
+    try:
+        model = load_bytes(DP_MODELS[kind]())
+        res = {}
+        if kind == "bert":
+            from .runtime.wp_hybrid import WordPieceHybrid
+
+            wp = WordPieceHybrid(model, device="cpu")
+            runner = mesh.ShardedWpRunner(wp)
+            for k, (bx, bi, lw) in enumerate(wp_slabs(wp, docs)):
+                rows, total, chk = runner.run_rows(bx, bi, lw)
+                res[f"rows{k}"] = rows
+                res[f"stats{k}"] = np.array([total, chk], np.int64)
+        else:
+            from .runtime.host import SpTokenizer
+
+            tok = SpTokenizer(model, max_doc_symbols=DP_DOC, device="cpu")
+            runner = mesh.ShardedSpRunner(tok)
+            ids, counts, fb, first, st = runner.run(docs)
+            res.update(run_ids=ids.numpy(), run_counts=counts.numpy(),
+                       run_fb=fb.numpy(), run_first=first,
+                       run_stats=[st.total_tokens, st.checksum, st.total_docs])
+            ids, bounds, need, status, st = runner.run_units(docs)
+            res.update(units_ids=ids, units_bounds=bounds, units_need=need,
+                       units_status=status,
+                       units_stats=[st.total_tokens, st.checksum,
+                                    st.total_docs])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp_ranks(kind: str, docs: list[bytes], world: int, out_dir: str,
+                 timeout: float = 120.0) -> list[dict]:
+    """Starts :func:`dp_rank` in ``world`` spawned processes and returns
+    each rank's results.  Raises if a rank fails, or kills every rank and
+    raises when they have not ended within ``timeout`` seconds (a rank that
+    dies leaves the others blocked in a collective)."""
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+
+    init_file = os.path.join(out_dir, "init")
+    ctx = mp.start_processes(dp_rank, args=(world, init_file, kind, docs,
+                                            out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{kind} ranks at world {world} did not "
+                                   f"end within {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
+            out.append({k: f[k] for k in f.files})
+    return out

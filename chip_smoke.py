@@ -99,7 +99,30 @@ Phases, each of which must pass (any failure exits non-zero):
  25. kernels-b K1 (comb + rank, trie + rank) and K2 (rank) against their
               plain versions on every launch (every row width) of the
               classic rows of one uncached 4 MiB batch, and on the rows of
-              the rank-fault model; tolerance 0.
+              the rank-fault model; tolerance 0;
+ 26. main-ww  a window past the compact lanes and K2's rows: the
+              gpt2-shaped model's SpTokenizer(max_doc_symbols=2048)
+              .encode_corpus_flat over the corpus (first, second, profiled
+              call) on the NumPy unit path: K1, K2 and K11 must launch, the
+              ids equal main's; then the spm-BPE comb model (classic rows)
+              and the xlnet-shaped model (NumPy unit path) at the same window
+              over the first 4 MiB: every document equals the native
+              runtime; no K2 launch of the phase passes N <= 1024 or a_max
+              <= 4096;
+ 27. kernels-p K11 pack_out (and K1 and K2, or K5 and K6, whose output it
+              packs) against their plain versions on every launch of the
+              NumPy unit path of one uncached 4 MiB batch at main-ww's window,
+              for both models; K11's library call is torch.cat; tolerance 0;
+ 28. main-dp  the data-parallel runners in an NCCL group of one process (one
+              card; more ranks are not shown here): ShardedSpRunner.run and
+              run_units of the gpt2- and xlnet-shaped models at 128 symbols
+              and ShardedWpRunner.run_rows of the bert-shaped hybrid's packed
+              rows over the first 4 MiB: totals and checksums equal the
+              plain shard_stats on the host over the same rows, run_units'
+              ids main's and main-u's, run_rows' rows WordPieceHybrid
+              .dispatch's; K12 must launch;
+ 29. kernels-dp K12 shard_stats against its plain version on main-dp's
+              slabs (the WordPiece ones strided); tolerance 0.
 Fallback documents of every path go to the native runtime; a run fails if
 one reaches the scalar oracle (Counters.oracle_docs).  Times per launch come
 from CUDA events after warm-up.  Each kernel is
@@ -139,24 +162,27 @@ DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
 UNI_MODES = ("dense", "wide", "comb")
 CLASSIC_DOC = 1024  # the classic path's window: K2's widest row
 BPE_MODES = {"comb": 3000, "trie": 420}  # table mode -> CJK characters
+WIDE_DOC = 2048  # main-ww's window: past the compact lanes and K2's rows
 # kernel -> (source, the TPU kernel it replaces on each path)
 SOURCES = {
     "scatter_trie": ("blingfire_tpu_torch/kernels/csrc/scatter_trie.cu",
                      {"bpe": "blingfire_tpu/ops/bpe.py:161",
                       "wordpiece": "blingfire_tpu/ops/lexer.py:179"}),
     "bpe_walk": ("blingfire_tpu_torch/kernels/csrc/bpe_walk.cu",
-                 {"bpe": "blingfire_tpu/ops/bpe.py:242",
-                  "bpe_classic": "blingfire_tpu/ops/bpe.py:242"}),
+                 {p: "blingfire_tpu/ops/bpe.py:242"
+                  for p in ("bpe", "bpe_classic", "bpe_units_np")}),
     "bpe_resolve": ("blingfire_tpu_torch/kernels/csrc/bpe_resolve.cu",
-                    {"bpe": "blingfire_tpu/ops/bpe.py:340",
-                     "bpe_classic": "blingfire_tpu/ops/bpe.py:340"}),
+                    {p: "blingfire_tpu/ops/bpe.py:340"
+                     for p in ("bpe", "bpe_classic", "bpe_units_np")}),
     "pack_out_compact": ("blingfire_tpu_torch/kernels/pack_triton.py",
                          {"bpe": "blingfire_tpu/runtime/dedup.py:218",
                           "unigram": "blingfire_tpu/runtime/dedup.py:218"}),
     "unigram_walk": ("blingfire_tpu_torch/kernels/csrc/unigram_walk.cu",
-                     {"unigram": "blingfire_tpu/ops/unigram.py:164"}),
+                     {p: "blingfire_tpu/ops/unigram.py:164"
+                      for p in ("unigram", "unigram_units_np")}),
     "unigram_viterbi": ("blingfire_tpu_torch/kernels/csrc/unigram_viterbi.cu",
-                        {"unigram": "blingfire_tpu/ops/unigram.py:216"}),
+                        {p: "blingfire_tpu/ops/unigram.py:216"
+                         for p in ("unigram", "unigram_units_np")}),
     "wp_subword_dense": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
                          {"wordpiece": "blingfire_tpu/ops/lexer.py:246"}),
     "wp_subword_comb": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
@@ -166,6 +192,11 @@ SOURCES = {
                     for p in ("words", "sentences", "wp_lexer")}),
     "hyph_segment": ("blingfire_tpu_torch/kernels/csrc/hyph_segment.cu",
                      {"hyph": "blingfire_tpu/ops/hyph.py:67"}),
+    "pack_out": ("blingfire_tpu_torch/kernels/pack_triton.py",
+                 {p: "blingfire_tpu/runtime/dedup.py:210"
+                  for p in ("bpe_units_np", "unigram_units_np")}),
+    "shard_stats": ("blingfire_tpu_torch/kernels/csrc/shard_stats.cu",
+                    {"dp": "blingfire_tpu/parallel/mesh.py:91"}),
 }
 WP_UNK = 100  # bert's [UNK]
 # the kernels the WordPiece main path launches (K8 runs only when the dense
@@ -181,7 +212,9 @@ KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "wp_subword_dense": ("wp_subword_dense_kernel",),
                 "wp_subword_comb": ("wp_subword_comb_kernel",),
                 "lexer_pass": ("lexer_pass_kernel",),
-                "hyph_segment": ("hyph_segment_kernel",)}
+                "hyph_segment": ("hyph_segment_kernel",),
+                "pack_out": ("_pack_full_kernel",),
+                "shard_stats": ("shard_stats_kernel",)}
 HYPHEN = 0x2012  # the hyphen WordHyphenationWithModel inserts by default
 # document 107 of tests/corpus.py::full_corpus(n_random=60): the JAX
 # package's device lexer breaks a sentence after '."' there (ROADMAP.md C)
@@ -397,7 +430,7 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
     regions = packed_regions(native, tok, docs, runner.spm_iw, True, None, dev)
     log(f"[kernels] {sum(len(r[0]) for r in regions)} packed rows: regions "
         f"{[(len(x), lw, b) for x, _l, lw, b in regions]}")
-    spm, unk, a_max = runner.spm_iw, 0, tok.a_max
+    spm, a_max = runner.spm_iw, tok.a_max
     stats = new_stats(("scatter_trie", "bpe_walk", "bpe_resolve",
                        "pack_out_compact"), "bpe")
 
@@ -415,43 +448,8 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
     for x, ln, lw, bounded in regions:
         B, N = x.shape
         before = {k: stats[k]["ms"] for k in stats}
-        LW = bpe_ops._walk_depth(tables, lw)
-        ovf = tables.max_len > LW and not bounded
-        # K1
-        m_k, _mr, so_k = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw,
-                                          bounded=bounded)
-        r = reads()
-        m_p, _pr, so_p = bpe_ops._walk_plain(tables, x, ln, spm, LW, ovf,
-                                             reads=r)
-        torch.cuda.synchronize()
-        s = stats[("bpe_walk", "bpe")]
-        s["err"] = max(s["err"], max_abs_err([(m_k, m_p), (so_k, so_p)]))
-        s["ms"] += cuda_ms(lambda: bpe_ops.bpe_walk(
-            tables, x, ln, spm, lw=lw, bounded=bounded), 50)
-        s["plain_ms"] += cuda_ms(lambda: bpe_ops._walk_plain(
-            tables, x, ln, spm, LW, ovf), 5)
-        s["bytes"] += B * N * 4 + B * 4 + LW * B * N * 4 + B * N \
-            + r.table_bytes()
-        s["ops"] += LW * B * N
-        # K2 on the kernel's walk output
-        r_k = bpe_ops.bpe_resolve(tables, m_k, None, so_k, x, ln, spm, unk,
-                                  a_max)
-        r_p = bpe_ops._resolve_plain(tables, m_k, None, so_k, x, ln, spm, unk,
-                                     a_max)
-        torch.cuda.synchronize()
-        s = stats[("bpe_resolve", "bpe")]
-        s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
-        s["ms"] += cuda_ms(lambda: bpe_ops.bpe_resolve(
-            tables, m_k, None, so_k, x, ln, spm, unk, a_max), 50)
-        s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
-            tables, m_k, None, so_k, x, ln, spm, unk, a_max), 2, warm=1)
-        surv, rstart, _re, _an, _v = bpe_ops._filter_plain(tables, m_k, x, ln, spm)
-        n_arcs = (surv.sum((0, 2)) + rstart.sum(1)).clamp(max=a_max).double()
-        lg = torch.log2(n_arcs.clamp(min=2))
-        s["bytes"] += LW * B * N * 4 + B * N + B * N * 4 + B * 4 \
-            + 3 * B * N * 4 + B * 4 + B
-        # least work: read the slots, a comparison sort and a claim per arc
-        s["ops"] += LW * B * N + int((n_arcs * lg).sum()) + 2 * int(n_arcs.sum())
+        r_k, r, _k_ms, _v_ms = bpe_pair_vs_plain(
+            stats, "bpe", bpe_ops, tables, x, ln, spm, a_max, lw, bounded)
         # K4 on the kernel's resolve output
         ids_k, st_k, _e, cnt_k, fb_k = r_k
         pack_vs_plain(stats[("pack_out_compact", "bpe")], dedup, ids_k, st_k,
@@ -468,13 +466,107 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         for x, ln, lw, bounded in regions:
             m, mr, so = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw,
                                          bounded=bounded)
-            r = bpe_ops.bpe_resolve(tables, m, mr, so, x, ln, spm, unk, a_max)
+            r = bpe_ops.bpe_resolve(tables, m, mr, so, x, ln, spm, 0, a_max)
             dedup.pack_out_compact(r[0], r[1], r[3], r[4])
 
     profiled_device_ms(once, stats)
     log(f"[kernels] profiler device ms per work unit: "
         f"{ {k[0]: s['device_ms'] for k, s in stats.items()} }")
     return stats
+
+
+def bpe_pair_vs_plain(stats, path: str, bpe_ops, t, x, ln, spm: int,
+                      a_max: int, lw=None, bounded: bool = False,
+                      reps=(50, 5, 2)):
+    """One K1 and one K2 launch (on K1's output) against their plain
+    versions on rows ``x``: errors, event times (``reps``: kernel, plain
+    walk, plain resolve) and the bound's bytes and operations into
+    ``stats[(kernel, path)]``.  Returns (K2's output, the walk's reads,
+    K1 ms, K2 ms)."""
+    B, N = x.shape
+    LW = bpe_ops._walk_depth(t, lw)
+    ovf = t.max_len > LW and not bounded
+    m_k, mr_k, so_k = bpe_ops.bpe_walk(t, x, ln, spm, lw=lw, bounded=bounded)
+    r = reads()
+    m_p, mr_p, so_p = bpe_ops._walk_plain(t, x, ln, spm, LW, ovf, reads=r)
+    torch.cuda.synchronize()
+    s = stats[("bpe_walk", path)]
+    pairs = [(m_k, m_p), (so_k, so_p)]
+    if mr_k is not None:
+        pairs.append((mr_k, mr_p))
+    s["err"] = max(s["err"], max_abs_err(pairs))
+    del m_p, mr_p
+    k_ms = cuda_ms(lambda: bpe_ops.bpe_walk(t, x, ln, spm, lw=lw,
+                                            bounded=bounded), reps[0])
+    s["ms"] += k_ms
+    s["plain_ms"] += cuda_ms(lambda: bpe_ops._walk_plain(
+        t, x, ln, spm, LW, ovf), reps[1], warm=1)
+    planes = 2 if mr_k is not None else 1  # m_pack, and m_rank in rank mode
+    # rows in; the planes and slot_overflow out; table entries once
+    s["bytes"] += B * N * 4 + B * 4 + planes * LW * B * N * 4 + B * N \
+        + r.table_bytes()
+    s["ops"] += LW * B * N
+    r_k = bpe_ops.bpe_resolve(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max)
+    r_p = bpe_ops._resolve_plain(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max)
+    torch.cuda.synchronize()
+    s = stats[("bpe_resolve", path)]
+    s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
+    del r_p
+    v_ms = cuda_ms(lambda: bpe_ops.bpe_resolve(
+        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max), reps[0])
+    s["ms"] += v_ms
+    s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
+        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max), reps[2], warm=1)
+    surv, rstart, _re, _an, _v = bpe_ops._filter_plain(t, m_k, x, ln, spm)
+    n_match = int(surv.sum((0, 2)).clamp(max=a_max).sum()) \
+        if mr_k is not None else 0
+    n_arcs = (surv.sum((0, 2)) + rstart.sum(1)).clamp(max=a_max).double()
+    lg = torch.log2(n_arcs.clamp(min=2))
+    # m_pack in full (the filter reads every slot), m_rank of the kept
+    # matches only (bpe_resolve.cu reads no other), slot_overflow, x,
+    # lengths in; three lanes, counts, flags out
+    s["bytes"] += LW * B * N * 4 + n_match * 4 + B * N + B * N * 4 + B * 4 \
+        + 3 * B * N * 4 + B * 4 + B
+    # least work: read the slots, a comparison sort and a claim per arc
+    s["ops"] += LW * B * N + int((n_arcs * lg).sum()) + 2 * int(n_arcs.sum())
+    return r_k, r, k_ms, v_ms
+
+
+def uni_pair_vs_plain(stats, path: str, uni_ops, tables, x, ln, lw_eff,
+                      reps=(50, 5, 2)):
+    """One K5 and one K6 launch (on K5's output) against their plain
+    versions on rows ``x``, as :func:`bpe_pair_vs_plain`.  Returns (K6's
+    output, the walk's reads, K5 ms, K6 ms)."""
+    B, N = x.shape
+    L = uni_ops.walk_depth(tables, lw_eff)
+    mk, ms = uni_ops.unigram_walk(tables, x, ln, lw=lw_eff)
+    r = reads()
+    pk, ps = uni_ops._walk_plain(tables, x, ln, L, reads=r)
+    torch.cuda.synchronize()
+    s = stats[("unigram_walk", path)]
+    s["err"] = max(s["err"], max_abs_err([(mk, pk), (ms, ps)]))
+    k_ms = cuda_ms(lambda: uni_ops.unigram_walk(tables, x, ln, lw=lw_eff),
+                   reps[0])
+    s["ms"] += k_ms
+    s["plain_ms"] += cuda_ms(lambda: uni_ops._walk_plain(tables, x, ln, L),
+                             reps[1])
+    s["bytes"] += B * N * 4 + B * 4 + B * N * L * 8 + r.table_bytes()
+    s["ops"] += B * N * L
+    r_k = uni_ops.unigram_viterbi(tables, mk, ms, ln, 0)
+    r_p = uni_ops._viterbi_plain(tables, mk, ms, ln, 0)
+    torch.cuda.synchronize()
+    s = stats[("unigram_viterbi", path)]
+    s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
+    v_ms = cuda_ms(lambda: uni_ops.unigram_viterbi(tables, mk, ms, ln, 0),
+                   reps[0])
+    s["ms"] += v_ms
+    s["plain_ms"] += cuda_ms(lambda: uni_ops._viterbi_plain(
+        tables, mk, ms, ln, 0), reps[2], warm=1)
+    n_tok = int(r_k[3].sum())
+    n_pos = int(ln.clamp(0, N).sum())
+    s["bytes"] += B * N * L * 8 + B * 4 + 3 * B * N * 4 + B * 4 + 4 * n_tok
+    s["ops"] += n_pos * (L + 1) * DF64_OPS
+    return r_k, r, k_ms, v_ms
 
 
 def scatter_vs_plain(s, bpe_ops, ti, tv, size: int, built, dev) -> None:
@@ -536,46 +628,18 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
         for x, ln, lw, bounded in regions:
             B, N = x.shape
             lw_eff = lw if bounded else None
-            L = uni_ops.walk_depth(tables, lw_eff)
-            # K5
-            mk, ms = uni_ops.unigram_walk(tables, x, ln, lw=lw_eff)
-            r = reads()
-            pk, ps = uni_ops._walk_plain(tables, x, ln, L, reads=r)
-            torch.cuda.synchronize()
-            s = stats[("unigram_walk", "unigram")]
-            s["err"] = max(s["err"], max_abs_err([(mk, pk), (ms, ps)]))
-            k_ms = cuda_ms(lambda: uni_ops.unigram_walk(tables, x, ln,
-                                                        lw=lw_eff), 50)
-            s["ms"] += k_ms
-            s["plain_ms"] += cuda_ms(lambda: uni_ops._walk_plain(
-                tables, x, ln, L), 5)
-            s["bytes"] += B * N * 4 + B * 4 + B * N * L * 8 + r.table_bytes()
-            s["ops"] += B * N * L
-            # K6 on the kernel's walk output
-            r_k = uni_ops.unigram_viterbi(tables, mk, ms, ln, 0)
-            r_p = uni_ops._viterbi_plain(tables, mk, ms, ln, 0)
-            torch.cuda.synchronize()
-            s = stats[("unigram_viterbi", "unigram")]
-            s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
-            v_ms = cuda_ms(lambda: uni_ops.unigram_viterbi(
-                tables, mk, ms, ln, 0), 50)
-            s["ms"] += v_ms
-            s["plain_ms"] += cuda_ms(lambda: uni_ops._viterbi_plain(
-                tables, mk, ms, ln, 0), 2, warm=1)
-            n_tok = int(r_k[3].sum())
-            n_pos = int(ln.clamp(0, N).sum())
-            s["bytes"] += B * N * L * 8 + B * 4 + 3 * B * N * 4 + B * 4 \
-                + 4 * n_tok
-            s["ops"] += n_pos * (L + 1) * DF64_OPS
+            r_k, r, k_ms, v_ms = uni_pair_vs_plain(stats, "unigram", uni_ops,
+                                                   tables, x, ln, lw_eff)
             # K4 on the kernel's output
             pack_vs_plain(stats[("pack_out_compact", "unigram")], dedup,
                           r_k[0], r_k[1], r_k[3], torch.zeros(
                               B, dtype=torch.bool, device=dev))
-            log(f"[kernels-u] {mode} region rows={B} L={L} bounded={bounded}: "
+            log(f"[kernels-u] {mode} region rows={B} "
+                f"L={uni_ops.walk_depth(tables, lw_eff)} bounded={bounded}: "
                 f"walk, viterbi and pack equal their plain versions; ms per "
                 f"launch walk {k_ms:.5f} viterbi {v_ms:.5f}; live lane-steps "
                 f"{r.steps}, table bytes read {r.table_bytes()}, tokens "
-                f"{n_tok}")
+                f"{int(r_k[3].sum())}")
 
         def once():
             for (x, ln, lw, bounded), fb in zip(regions, fbs):
@@ -979,54 +1043,15 @@ def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
                     torch.from_numpy(np.ascontiguousarray(ln[part])).to(dev)))
         for xd, ld in launches:
             B, W = xd.shape
-            LW = bpe_ops._walk_depth(t, None)
-            m_k, mr_k, so_k = bpe_ops.bpe_walk(t, xd, ld, spm)
-            r = reads()
-            m_p, mr_p, so_p = bpe_ops._walk_plain(t, xd, ld, spm, LW, False,
-                                                  reads=r)
-            torch.cuda.synchronize()
-            s = stats[("bpe_walk", "bpe_classic")]
-            s["err"] = max(s["err"], max_abs_err(
-                [(m_k, m_p), (mr_k, mr_p), (so_k, so_p)]))
-            del m_p, mr_p
-            k_ms = cuda_ms(lambda: bpe_ops.bpe_walk(t, xd, ld, spm), 20)
-            s["ms"] += k_ms
-            s["plain_ms"] += cuda_ms(lambda: bpe_ops._walk_plain(
-                t, xd, ld, spm, LW, False), 2, warm=1)
-            # rows in; m_pack, m_rank, slot_overflow out; table entries once
-            s["bytes"] += B * W * 4 + B * 4 + 2 * LW * B * W * 4 + B * W \
-                + r.table_bytes()
-            s["ops"] += LW * B * W
-            r_k = bpe_ops.bpe_resolve(t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max)
-            r_p = bpe_ops._resolve_plain(t, m_k, mr_k, so_k, xd, ld, spm, 0,
-                                         a_max)
-            torch.cuda.synchronize()
-            s = stats[("bpe_resolve", "bpe_classic")]
-            s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
-            del r_p
-            v_ms = cuda_ms(lambda: bpe_ops.bpe_resolve(
-                t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max), 20)
-            s["ms"] += v_ms
-            s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
-                t, m_k, mr_k, so_k, xd, ld, spm, 0, a_max), 1, warm=1)
-            surv, rstart, _re, _an, _v = bpe_ops._filter_plain(t, m_k, xd, ld,
-                                                               spm)
-            n_match = surv.sum((0, 2)).clamp(max=a_max)
-            n_arcs = (surv.sum((0, 2)) + rstart.sum(1)).clamp(max=a_max).double()
-            lg = torch.log2(n_arcs.clamp(min=2))
-            # m_pack in full (the filter reads every slot), m_rank of the
-            # kept matches only (bpe_resolve.cu reads no other), slot_overflow,
-            # x, lengths in; three lanes, counts, flags out
-            s["bytes"] += LW * B * W * 4 + int(n_match.sum()) * 4 + B * W \
-                + B * W * 4 + B * 4 + 3 * B * W * 4 + B * 4 + B
-            s["ops"] += LW * B * W + int((n_arcs * lg).sum()) \
-                + 2 * int(n_arcs.sum())
+            r_k, r, k_ms, v_ms = bpe_pair_vs_plain(
+                stats, "bpe_classic", bpe_ops, t, xd, ld, spm, a_max,
+                reps=(20, 2, 1))
             log(f"[kernels-b] {mode} rank: {B} rows of width {W}: walk and "
                 f"resolve equal their plain versions; ms per launch walk "
                 f"{k_ms:.5f} resolve {v_ms:.5f}; fallback rows "
                 f"{int(r_k[4].sum())}; table bytes read {r.table_bytes()} in "
                 f"{r.steps} live lane-steps")
-            del m_k, mr_k, so_k, r_k, surv, rstart
+            del r_k
 
         def once():
             for xd, ld in launches:
@@ -1064,6 +1089,208 @@ def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
     stats = by_mode["comb"]
     for k, s in stats.items():
         s["err"] = max([by_mode[m][k]["err"] for m in by_mode] + [err_f])
+    return stats
+
+
+def run_dp(mesh, toks, want, hyb, sub, testing, dedup, native, dev):
+    """Phase 28 in a process group: ShardedSpRunner.run and run_units of
+    each tokenizer of ``toks`` (kind -> SpTokenizer) and ShardedWpRunner
+    .run_rows of ``hyb``'s packed rows, over the documents ``sub``.  Totals
+    and checksums must equal the plain shard_stats on the host over the
+    same rows; run_units' ids equal ``want[kind]`` (the main runs') on every
+    document it does not mark; run_rows' rows equal WordPieceHybrid
+    .dispatch's.  Returns the (name, ids, counts) slabs for kernels-dp."""
+    slabs = []
+    for kind, tok in toks.items():
+        runner = mesh.ShardedSpRunner(tok)
+        t0 = time.perf_counter()
+        ids, counts, _fb, first, st = runner.run(sub)
+        t_run = time.perf_counter() - t0
+        exp = mesh.finish_stats(mesh._shard_stats_plain(ids.cpu(),
+                                                        counts.cpu()))
+        check(first == 0 and len(ids) == len(sub)
+              and (st.total_tokens, st.checksum) == exp,
+              f"main-dp {kind} run: stats {st} differ from the host's {exp}")
+        slabs.append((f"{kind} run", ids, counts))
+        t0 = time.perf_counter()
+        u_ids, u_bounds, need, _status, st_u = runner.run_units(sub)
+        t_units = time.perf_counter() - t0
+        bad = [i for i in np.flatnonzero(~need)
+               if u_ids[u_bounds[i] : u_bounds[i + 1]].tolist() != want[kind][i]]
+        check(not bad, f"main-dp {kind} run_units: {len(bad)} docs differ "
+              f"from the main run's, first {bad[:5]}")
+        # the same rows on one card, one full-depth pass a launch
+        units = tok._unit_runner()
+        nu = native.units_analyze(sub, tok.n_doc, tok._sym2iw, units.spm_iw,
+                                  tok.seg.use_raw_bytes,
+                                  tok.seg.no_dummy_prefix, tok.seg.charmap)
+        R = nu.n_rows
+        xd = torch.from_numpy(nu.px[:R]).to(dev)
+        ld = torch.from_numpy(nu.plen[:R]).to(dev)
+        nu.close()
+        acc = torch.zeros(2, dtype=torch.int64)
+        step = dedup.launch_rows(tok, tok.n_doc, None)
+        for lo in range(0, R, step):
+            u_k, _st, c_k, _f = units._kernel(xd[lo : lo + step],
+                                              ld[lo : lo + step], 0)
+            acc += mesh._shard_stats_plain(u_k.cpu(), c_k.cpu())
+            slabs.append((f"{kind} run_units", u_k, c_k))
+        exp_u = mesh.finish_stats(acc)
+        check((st_u.total_tokens, st_u.checksum) == exp_u,
+              f"main-dp {kind} run_units: stats {st_u} differ from the "
+              f"host's {exp_u}")
+        log(f"[main-dp] {kind}: run {t_run:.3f} s ({len(sub)} rows, total "
+            f"{st.total_tokens}, checksum {st.checksum}); run_units "
+            f"{t_units:.3f} s ({R} rows, total {st_u.total_tokens}, "
+            f"checksum {st_u.checksum}, {int(need.sum())} docs marked); "
+            f"both equal the host's plain shard_stats, run_units' ids the "
+            f"main run's")
+    runner_w = mesh.ShardedWpRunner(hyb)
+    outs = []
+    for bx, bi, lw in testing.wp_slabs(hyb, sub):
+        t0 = time.perf_counter()
+        rows, total, chk = runner_w.run_rows(bx, bi, lw)
+        t_rows = time.perf_counter() - t0
+        out = torch.from_numpy(rows).to(dev)
+        exp = mesh.finish_stats(mesh._shard_stats_plain(out[:, :-2].cpu(),
+                                                        out[:, -2].cpu()))
+        check((total, chk) == exp, f"main-dp run_rows lw {lw}: stats "
+              f"{(total, chk)} differ from the host's {exp}")
+        outs.append(rows)
+        slabs.append((f"wordpiece lw {lw}", out[:, :-2], out[:, -2]))
+        log(f"[main-dp] wordpiece lw {lw}: run_rows {t_rows:.3f} s, "
+            f"{len(rows)} rows, total {total}, checksum {chk}")
+    h, _b, _row, _off, host, done = hyb.dispatch(sub)
+    if done is not None:
+        done.synchronize()
+    ref = host.numpy().copy()
+    hyb._rt.BtlWpFree(h)
+    check(np.array_equal(np.concatenate(outs), ref),
+          "main-dp: run_rows' rows differ from WordPieceHybrid.dispatch's")
+    log(f"[main-dp] run_rows' {len(ref)} rows equal WordPieceHybrid"
+        f".dispatch's")
+    return slabs
+
+
+def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
+    """Phase 27: K11 against its plain version (and the segment kernels
+    whose output it packs: K1 and K2, or K5 and K6) on every launch of the
+    NumPy unit path of one uncached CMP_BYTES batch, for each tokenizer of
+    ``toks`` (path -> SpTokenizer at WIDE_DOC); K11's library call is one
+    torch.cat of the same planes."""
+    sub = corpus_prefix(docs, CMP_BYTES)
+    stats = {}
+    for path, tok in toks.items():
+        seg = (("bpe_walk", "bpe_resolve") if tok.is_bpe
+               else ("unigram_walk", "unigram_viterbi"))
+        st = new_stats(seg + ("pack_out",), path)
+        runner = tok._unit_runner()
+        x, spm, ln, _status = tok._prep_batch(sub, with_spm=True)
+        t0 = time.perf_counter()
+        ub = dedup.split_units(x, spm, ln)
+        t_split = time.perf_counter() - t0
+        W = min(tok.n_doc, bpe_ops.RESOLVE_MAX_N)
+        t0 = time.perf_counter()
+        px, plen, _row, _off = dedup.pack_units(ub, W)
+        t_pack = time.perf_counter() - t0
+        step = dedup.launch_rows(tok, W, None)
+        launches = [(torch.from_numpy(px[lo : lo + step]).to(dev),
+                     torch.from_numpy(plen[lo : lo + step]).to(dev))
+                    for lo in range(0, len(px), step)]
+        log(f"[kernels-p] {path}: {len(ub.inst_unit)} unit instances, "
+            f"{len(ub.u_len)} distinct, {int(ub.classic.sum())} docs with a "
+            f"unit past {dedup.UNIT_MAX}; split and dedup {t_split:.3f} s, "
+            f"pack {t_pack:.3f} s (host); {len(px)} rows of {W} in "
+            f"{len(launches)} launches")
+        a_max = min(tok.a_max, bpe_ops.RESOLVE_MAX_ARCS)
+        packs = []
+        for xd, ld in launches:
+            B = xd.shape[0]
+            if tok.is_bpe:
+                r_k, _r, k_ms, v_ms = bpe_pair_vs_plain(
+                    st, path, bpe_ops, tok.tables, xd, ld, runner.spm_iw,
+                    a_max, reps=(20, 2, 1))
+                fb = r_k[4]
+            else:
+                r_k, _r, k_ms, v_ms = uni_pair_vs_plain(
+                    st, path, uni_ops, tok.tables, xd, ld, None,
+                    reps=(20, 2, 1))
+                fb = torch.zeros(B, dtype=torch.bool, device=dev)
+            ids, sts, cnt = r_k[0], r_k[1], r_k[3]
+            packs.append((ids, sts, cnt, fb))
+            N = ids.shape[1]
+            s = st[("pack_out", path)]
+            o_k = dedup.pack_out(ids, sts, cnt, fb)
+            o_p = dedup._pack_out_plain(ids, sts, cnt, fb)
+            torch.cuda.synchronize()
+            s["err"] = max(s["err"], max_abs_err([(o_k, o_p)]))
+            p_ms = cuda_ms(lambda: dedup.pack_out(ids, sts, cnt, fb), 50)
+            s["ms"] += p_ms
+            s["plain_ms"] += cuda_ms(
+                lambda: dedup._pack_out_plain(ids, sts, cnt, fb), 50)
+            cols = [ids, sts, cnt[:, None], fb.to(torch.int32)[:, None]]
+            s["library_ms"] = (s["library_ms"] or 0.0) + cuda_ms(
+                lambda: torch.cat(cols, dim=1), 50)
+            s["bytes"] += 2 * B * N * 4 + B * 4 + B + B * (2 * N + 2) * 4
+            s["ops"] += B * (2 * N + 2)
+            log(f"[kernels-p] {path}: {B} rows of {N}: segment and pack "
+                f"equal their plain versions; ms per launch {seg[0]} "
+                f"{k_ms:.5f} {seg[1]} {v_ms:.5f} pack_out {p_ms:.5f}; "
+                f"fallback rows {int(fb.sum())}")
+
+        def once():
+            for (xd, ld), (ids, sts, cnt, fb) in zip(launches, packs):
+                runner._kernel(xd, ld, 0)
+                dedup.pack_out(ids, sts, cnt, fb)
+
+        profiled_device_ms(once, st)
+        for (name, _path), s in st.items():
+            bound, bound_by = bound_of(s)
+            log(f"[kernels-p] {path} {name}: {s['ms']:.4f} ms, device "
+                f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, library "
+                f"{s['library_ms']} ms, bound {bound:.5f} ms ({bound_by}), "
+                f"max_abs_err {s['err']}")
+        stats.update(st)
+    return stats
+
+
+def dp_kernels(slabs, mesh) -> dict:
+    """Phase 29: K12 against its plain version on each (ids, counts) slab
+    of main-dp (the WordPiece slabs strided), their times and byte bound;
+    no one PyTorch call computes it."""
+    stats = new_stats(("shard_stats",), "dp")
+    s = stats[("shard_stats", "dp")]
+    for name, ids, counts in slabs:
+        R, W = ids.shape
+        acc = torch.zeros(2, dtype=torch.int64, device=ids.device)
+        mesh.shard_stats(ids, counts, acc)
+        want = mesh._shard_stats_plain(ids, counts)
+        torch.cuda.synchronize()
+        got, exp = mesh.finish_stats(acc), mesh.finish_stats(want)
+        s["err"] = max(s["err"], float(max(abs(a - b) for a, b in
+                                           zip(got, exp))))
+        k_ms = cuda_ms(lambda: mesh.shard_stats(ids, counts, acc), 50)
+        s["ms"] += k_ms
+        s["plain_ms"] += cuda_ms(lambda: mesh._shard_stats_plain(ids, counts),
+                                 20)
+        lanes = int(counts.clamp(0, W).sum())
+        # the lanes below each count and the counts read, acc written
+        s["bytes"] += lanes * 4 + R * 4 + 16
+        s["ops"] += 3 * lanes
+        log(f"[kernels-dp] {name}: {R} rows of {W} lanes ({lanes} below the "
+            f"counts): K12 {got} equals its plain version {exp}; "
+            f"{k_ms:.5f} ms per launch")
+
+    def once():
+        acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+        for _name, ids, counts in slabs:
+            mesh.shard_stats(ids, counts, acc)
+
+    profiled_device_ms(once, stats)
+    bound, bound_by = bound_of(s)
+    log(f"[kernels-dp] {len(slabs)} launches, {s['ms']:.4f} ms, device "
+        f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
+        f"{bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
     return stats
 
 
@@ -1318,7 +1545,7 @@ def main() -> int:
 
     # ------------------------------------------------------- 12. kernels-w
     stats.update(wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev))
-    del hyb, hyb_c
+    del hyb_c  # hyb runs again in main-dp
 
     # --------------------------------------------------------- 13. model-l
     lex_models = {}
@@ -1564,11 +1791,127 @@ def main() -> int:
                                  bpe_ops, dedup.launch_rows, dev))
     del tok_b, tok_br
 
+    # --------------------------------------------------------- 26. main-ww
+    seen = []  # (width, a_max) of every K2 launch of main-ww
+
+    def spy(tables, m_pack, *args):
+        seen.append((m_pack.shape[2], args[-1]))
+        return resolve(tables, m_pack, *args)
+
+    resolve, bpe_ops.bpe_resolve = bpe_ops.bpe_resolve, spy
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tok_ww = SpTokenizer(model, max_doc_symbols=WIDE_DOC, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[main-ww] SpTokenizer(gpt2-shaped, max_doc_symbols={WIDE_DOC}) "
+            f"init {time.perf_counter() - t0:.3f} s: compact lanes "
+            f"{tok_ww._unit_runner().compact_ok}, row_max {tok_ww.row_max}, "
+            f"a_max {tok_ww.a_max}")
+        check(tok_ww._chunk_safe and not tok_ww._unit_runner().compact_ok,
+              "the wide window does not take the NumPy unit path")
+        main_ww = run_main(tok_ww, docs, "main-ww", kernels, metrics)
+        for name in kernels.PATHS["bpe_units_np"]:
+            check(main_ww["launches"].get(name, 0) > 0,
+                  f"kernel {name} never launched on main-ww")
+        c_w = main_ww["counters"]
+        check(c_w.units_np_batches == c_w.batches and c_w.oracle_docs == 0,
+              "main-ww left the NumPy unit path or reached the oracle")
+        check(np.array_equal(main_ww["ids"], main["ids"])
+              and np.array_equal(main_ww["bounds"], main["bounds"]),
+              "main-ww gave other ids than main")
+        t_st = sum(c_w.stage_seconds.values())
+        log(f"[main-ww] the ids of all {len(docs)} docs equal main's; "
+            f"{c_w.chunked_docs} docs in chunk rows, {c_w.fallback_docs} to "
+            f"the native runtime; shares of the staged time: chunk rows "
+            f"{c_w.stage_seconds.get('chunk', 0.0) / t_st:.6f}, native "
+            f"runtime {c_w.stage_seconds.get('fallback', 0.0) / t_st:.6f}")
+        del main_ww["ids"], main_ww["bounds"]
+        # the spm-BPE comb model (classic rows) and the xlnet-shaped model
+        # (NumPy unit path) at the same window over the first 4 MiB
+        for label, m, path in (("spm-comb", models_b["comb"], "bpe_classic"),
+                               ("xlnet", model_u, "unigram_units_np")):
+            kernels.reset_launches()
+            tk = SpTokenizer(m, max_doc_symbols=WIDE_DOC, device="cuda")
+            c = metrics.Counters()
+            t0 = time.perf_counter()
+            ids, bounds = tk.encode_corpus_flat(sub, counters=c)
+            t_x = time.perf_counter() - t0
+            run_x = {"launches": dict(kernels.launches)}
+            log(f"[main-ww] {label}: row_max {tk.row_max}, encode_corpus_flat "
+                f"over {len(sub)} docs: {t_x:.3f} s, {c.chunked_docs} chunked, "
+                f"{c.fallback_docs} to the native runtime, NumPy unit batches "
+                f"{c.units_np_batches} of {c.batches}; stage seconds "
+                f"{dict(c.stage_seconds)}; launches {run_x['launches']}")
+            for name in kernels.PATHS[path]:
+                check(run_x["launches"].get(name, 0) > 0,
+                      f"kernel {name} never launched on main-ww {label}")
+            check(c.oracle_docs == 0, "a fallback document reached the oracle")
+            check_native(tk, native, sub, ids, bounds, f"main-ww {label}")
+            if path == "unigram_units_np":
+                check(tk.row_max == WIDE_DOC, "unigram rows were cut")
+                main_wu, tok_wu = run_x, tk
+            del ids, bounds, tk
+    finally:
+        bpe_ops.bpe_resolve = resolve
+    widths, arcs = {n for n, _a in seen}, {a for _n, a in seen}
+    check(seen and max(widths) <= bpe_ops.RESOLVE_MAX_N
+          and max(arcs) <= bpe_ops.RESOLVE_MAX_ARCS,
+          f"a K2 launch passed its limits: widths {widths}, a_max {arcs}")
+    log(f"[main-ww] {len(seen)} K2 launches, widths {sorted(widths)}, a_max "
+        f"{sorted(arcs)}: all inside N <= {bpe_ops.RESOLVE_MAX_N}, a_max <= "
+        f"{bpe_ops.RESOLVE_MAX_ARCS}")
+
+    # ------------------------------------------------------- 27. kernels-p
+    stats.update(units_np_kernels(
+        {"bpe_units_np": tok_ww, "unigram_units_np": tok_wu}, docs, bpe_ops,
+        uni_ops, dedup, dev))
+    del tok_ww, tok_wu
+
+    # --------------------------------------------------------- 28. main-dp
+    import socket
+
+    import torch.distributed as dist
+
+    from blingfire_tpu_torch.parallel import mesh
+
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    toks_dp = {"gpt2": SpTokenizer(model, max_doc_symbols=128, device="cuda"),
+               "xlnet": SpTokenizer(model_u, max_doc_symbols=128,
+                                    device="cuda")}
+    want = {k: [run["ids"][run["bounds"][i] : run["bounds"][i + 1]].tolist()
+                for i in range(len(sub))]
+            for k, run in (("gpt2", main), ("xlnet", main_u))}
+    kernels.reset_launches()
+    mesh.init_group("cuda", init_method=f"tcp://localhost:{port}", rank=0,
+                    world_size=1)
+    try:
+        log(f"[main-dp] NCCL group of {dist.get_world_size()} rank on "
+            f"{torch.cuda.device_count()} card(s): one process per card; "
+            f"ranks beyond one are not shown on one card")
+        slabs = run_dp(mesh, toks_dp, want, hyb, sub, testing, dedup, native,
+                       dev)
+        main_dp = {"launches": dict(kernels.launches)}
+    finally:
+        dist.destroy_process_group()
+    check(main_dp["launches"].get("shard_stats", 0) > 0,
+          "K12 never launched on main-dp")
+    log(f"[main-dp] launches {main_dp['launches']}")
+    del toks_dp, want, hyb
+
+    # ------------------------------------------------------ 29. kernels-dp
+    stats.update(dp_kernels(slabs, mesh))
+    del slabs
+
     path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
                  ("wordpiece", main_wc), ("words", lex_runs["words"]),
                  ("sentences", lex_runs["sentences"]),
                  ("wp_lexer", main_lw), ("hyph", main_h),
-                 ("bpe_classic", main_b))
+                 ("bpe_classic", main_b), ("bpe_units_np", main_ww),
+                 ("unigram_units_np", main_wu), ("dp", main_dp))
     rows = kernel_rows(stats, path_runs, kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

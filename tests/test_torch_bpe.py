@@ -194,7 +194,11 @@ def test_plain_walk_notes_the_trie_entries_it_reads(region, lw, bounded):
 def _jax_resolve(monkeypatch, gather: str, jt, m_pack, m_rank, so, x, ln,
                  spm_iw, a_max):
     monkeypatch.setenv("BTL_GATHER", gather)
-    fn = jax.jit(jax_bpe._resolve_impl, static_argnames=("a_max",))
+    # a new function object a branch: jax.jit keeps its traces per function
+    # object, so a jit of _resolve_impl itself would reuse the other branch's
+    fn = jax.jit(functools.wraps(jax_bpe._resolve_impl)(
+        lambda *a, **k: jax_bpe._resolve_impl(*a, **k)),
+        static_argnames=("a_max",))
     out = fn(jt, m_pack, m_rank, so, jax.numpy.asarray(x == spm_iw),
              jax.numpy.asarray(ln), jax.numpy.int32(0), a_max=a_max)
     return [np.asarray(o) for o in out]

@@ -5,7 +5,9 @@ region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
-takes a transition that the automaton does not have.
+takes a transition that the automaton does not have; K11 pack_out and K12
+shard_stats, and the routes of a window of 2,048 symbols on the card
+against the CPU.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -30,6 +32,7 @@ from blingfire_tpu_torch.formats.consts import TokAlgo
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
 from blingfire_tpu_torch.ops.tables import build_comb_table
+from blingfire_tpu_torch.parallel import mesh
 from blingfire_tpu_torch.runtime import dedup, host, metrics
 from blingfire_tpu_torch.runtime.host import SpTokenizer
 from blingfire_tpu_torch.runtime.hyph import HyphTpu
@@ -571,3 +574,87 @@ def test_encode_batch_without_dedup_on_the_card_matches_cpu():
     cpu = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cpu")
     got = gpu.encode_batch(docs, dedup=False)
     assert got == cpu.encode_batch(docs, dedup=False) == gpu.encode_batch(docs)
+
+
+# ------------------------------ the NumPy unit path, data-parallel stats
+
+
+@pytest.mark.parametrize("width", [128, 1024])
+def test_pack_out_kernel_matches_plain(width):
+    """K11 against its plain version on random rows, whole and into a slice
+    of a larger output."""
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    B = 700
+    ids = torch.from_numpy(rng.integers(-5, 1 << 20, (B, width),
+                                        dtype=np.int32)).cuda()
+    st = torch.from_numpy(rng.integers(0, width, (B, width),
+                                       dtype=np.int32)).cuda()
+    cnt = torch.from_numpy(rng.integers(0, width + 1, B, dtype=np.int32)).cuda()
+    fb = torch.from_numpy(rng.random(B) < 0.3).cuda()
+    n = kernels.launches["pack_out"]
+    got = dedup.pack_out(ids, st, cnt, fb)
+    assert kernels.launches["pack_out"] == n + 1
+    want = dedup._pack_out_plain(ids, st, cnt, fb)
+    assert torch.equal(got, want)
+    big = torch.full((B + 9, 2 * width + 2), -7, dtype=torch.int32,
+                     device="cuda")
+    dedup.pack_out(ids[:B - 3], st[:B - 3], cnt[:B - 3], fb[:B - 3],
+                   out=big[5 : B + 2])
+    assert torch.equal(big[5 : B + 2], want[:B - 3])
+    assert (big[:5] == -7).all() and (big[B + 2 :] == -7).all()
+
+
+@pytest.mark.parametrize("layout", ["rows", "wordpiece_slab"])
+def test_shard_stats_kernel_matches_plain(layout):
+    """K12 against its plain version: ids near 2^20 and negative lanes at
+    positions up to 1,023 (the sums wrap), two launches into one buffer,
+    and the WordPiece slab's strided ids and count column."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    R, W = 3001, 1024
+    ids = rng.integers((1 << 20) - 4096, 1 << 20, (R, W), dtype=np.int32)
+    ids[::7, ::5] = rng.integers(-(1 << 31), -1, ids[::7, ::5].shape,
+                                 dtype=np.int32)
+    counts = rng.integers(0, W + 1, R, dtype=np.int32)
+    if layout == "rows":
+        t_ids = torch.from_numpy(ids).cuda()
+        t_counts = torch.from_numpy(counts).cuda()
+    else:
+        slab = torch.zeros((R, W + 2), dtype=torch.int32, device="cuda")
+        slab[:, :W] = torch.from_numpy(ids).cuda()
+        slab[:, W] = torch.from_numpy(counts).cuda()
+        t_ids, t_counts = slab[:, :-2], slab[:, -2]
+    acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+    n = kernels.launches["shard_stats"]
+    mesh.shard_stats(t_ids[:1000], t_counts[:1000], acc)
+    mesh.shard_stats(t_ids[1000:], t_counts[1000:], acc)
+    mesh.shard_stats(t_ids[:0], t_counts[:0], acc)
+    assert kernels.launches["shard_stats"] == n + 2
+    want = mesh._shard_stats_plain(t_ids, t_counts)
+    assert mesh.finish_stats(acc) == mesh.finish_stats(want)
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "spm", "xlnet"])
+def test_wide_window_on_the_card_matches_cpu(kind):
+    """max_doc_symbols=2048 on the card: the NumPy unit path (K11) for the
+    chunk-safe models, the classic rows for the spm-BPE-shaped one; no K2
+    launch passes its limits (the wrapper raises), and the ids equal the
+    CPU's."""
+    _need_cuda()
+    blob = {"gpt2": lambda: testing.gpt2_shaped_model_bytes(2000, n_long=40),
+            "spm": lambda: testing.spm_bpe_shaped_model_bytes(
+                2000, n_cjk=20, n_pairs=40),
+            "xlnet": lambda: testing.xlnet_shaped_model_bytes(
+                4000, n_cjk=100)}[kind]()
+    docs = testing.wide_window_docs()
+    kernels.reset_launches()
+    gpu = SpTokenizer(load_bytes(blob), max_doc_symbols=2048)
+    c = metrics.Counters()
+    ids, bounds = gpu.encode_corpus_flat(docs, batch_docs=16, counters=c)
+    assert (kernels.launches["pack_out"] > 0) == (kind != "spm")
+    assert c.units_np_batches == (c.batches if kind != "spm" else 0)
+    cpu = SpTokenizer(load_bytes(blob), max_doc_symbols=2048, device="cpu")
+    cids, cbounds = cpu.encode_corpus_flat(docs, batch_docs=16)
+    assert (ids == cids).all() and (bounds == cbounds).all()
+    assert gpu.encode_batch(docs) == cpu.encode_batch(docs)

@@ -3,8 +3,9 @@ against the JAX package's: the host prep (decode_utf8, prepare_sp_doc, the
 native prep_sp_batch), encode_corpus, encode_corpus_flat and encode_batch on
 models that are not chunk-safe (a SentencePiece-BPE-shaped merges model in
 the comb and trie table modes, a unigram model), encode_batch without dedup
-on the gpt2-shaped model (long documents chunked), and the fallback
-documents through the native runtime.  Ids compare exactly."""
+on the gpt2-shaped model (long documents chunked), the fallback
+documents through the native runtime, and K2's launch limits at a window
+of 2,048 symbols.  Ids compare exactly."""
 
 from __future__ import annotations
 
@@ -186,3 +187,48 @@ def test_model_without_spm_in_its_alphabet():
     want = jtok.encode_batch(docs)
     assert tok.encode_batch(docs) == want
     assert want == [tok._oracle.text_to_ids(d) for d in docs]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_wide(kind: str):
+    """The JAX package's encode_corpus of ``wide_window_docs`` at a window of
+    2,048 symbols (rows 2,048 wide, a_max 8,192; seconds on the CPU)."""
+    jtok = jax_host.SpTokenizer(jax_load_bytes(_blob(kind)),
+                                max_doc_symbols=2048)
+    docs = testing.wide_window_docs()
+    return jtok.encode_corpus(docs, batch_docs=len(docs))
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "spm"])
+def test_k2_launches_stay_inside_their_limits(monkeypatch, kind):
+    """At max_doc_symbols=2048 every K2 launch keeps N <= 1024 and a_max <=
+    4096 (before, the classic rows went 2,048 wide with a_max 8,192, which
+    the kernel refuses): BPE documents past 1,024 symbols take chunk rows,
+    and a row with more arcs is flagged and goes to the native runtime.
+    The ids equal the native runtime's TextToIds and JAX's same call."""
+    seen = []
+    orig = bpe.bpe_resolve
+
+    def record(tables, m_pack, *args):
+        seen.append((m_pack.shape[2], args[-1]))
+        return orig(tables, m_pack, *args)
+
+    monkeypatch.setattr(bpe, "bpe_resolve", record)
+    tok = SpTokenizer(load_bytes(_blob(kind)), max_doc_symbols=2048,
+                      device="cpu")
+    assert tok.row_max == bpe.RESOLVE_MAX_N and tok.a_max == 8192
+    docs = testing.wide_window_docs()
+    lens = tok._prep_batch(docs)[1]
+    assert ((lens > 1024) & (lens <= 2048)).sum() >= 3
+    assert (tok._prep_batch(docs)[2] == 2).any()
+    c = metrics.Counters()
+    ids, bounds = tok.encode_corpus_flat(docs, batch_docs=16, counters=c)
+    got = [ids[bounds[i]:bounds[i + 1]].tolist() for i in range(len(docs))]
+    classic = tok.encode_batch(docs, dedup=False)
+    assert seen and max(n for n, _a in seen) == bpe.RESOLVE_MAX_N
+    assert all(n <= bpe.RESOLVE_MAX_N and a <= bpe.RESOLVE_MAX_ARCS
+               for n, a in seen), sorted(set(seen))
+    assert c.chunked_docs > 0 and c.oracle_docs == 0
+    assert got == [tok._fallback_ids(d, 0) for d in docs]
+    assert classic == got
+    assert got == jax_wide(kind)

@@ -35,7 +35,9 @@ new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat",
        "blingfire_tpu_torch.ops.bpe", "blingfire_tpu_torch.runtime.host",
        "blingfire_tpu_torch.runtime.dedup", "blingfire_tpu_torch.native",
        "blingfire_tpu_torch.kernels", "blingfire_tpu_torch.runtime.metrics",
-       "blingfire_tpu_torch.testing"}
+       "blingfire_tpu_torch.testing",
+       # the data-parallel runners
+       "blingfire_tpu_torch.parallel", "blingfire_tpu_torch.parallel.mesh"}
 assert new <= set(names), names
 """
 
@@ -49,6 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_entry_points_default_to_cuda():
     from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
+    from blingfire_tpu_torch.parallel import mesh
     from blingfire_tpu_torch.runtime.host import SpTokenizer
     from blingfire_tpu_torch.runtime.hyph import HyphTpu
     from blingfire_tpu_torch.runtime.lexer_host import LexerTpu
@@ -58,5 +61,5 @@ def test_entry_points_default_to_cuda():
                unigram.make_device_tables, WordPieceHybrid.__init__,
                lexer.make_device_tables, lexer.make_dense_sub,
                LexerTpu.__init__, hyph.make_device_tables,
-               HyphTpu.__init__):
+               HyphTpu.__init__, mesh.init_group):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
