@@ -6,11 +6,11 @@ with ctypes.  :func:`build` starts one ``nvcc`` per source, and the
 ``g++`` of the host library and of the native runtime, all at once, so the
 first use pays the slowest single compile.  Libraries land in
 ``build/blingfire_tpu_torch/kernels/``, one per source, named by the source
-and a hash of it and the headers.  The Triton kernels (``pack_triton.py``)
-are compiled by Triton at their first launch.
+and a hash of it and the headers.  The Triton kernel K4 (``pack_triton.py``)
+is compiled by Triton at its first launch.
 
 Every launch goes through :func:`launch` (or :func:`note_launch` for the
-Triton kernels), which adds one to ``launches[name]``: a run can show that
+Triton kernel), which adds one to ``launches[name]``: a run can show that
 its main path went through each kernel.  A C entry point returns the
 ``cudaGetLastError()`` of its launch; a non-zero code raises.
 """
@@ -60,6 +60,7 @@ KERNELS = {
                       _P, _I, _I, _P]),
     "shard_stats": ("shard_stats.cu", "bf_shard_stats",
                     [_P, _I64, _P, _I64, _I64, _I, _P]),
+    "pack_out": ("pack_out.cu", "bf_pack_out", [_P] * 5 + [_I, _I]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -98,12 +99,12 @@ PATHS = {
     "bpe_units_np": {
         "bpe_walk": "cuda",
         "bpe_resolve": "cuda",
-        "pack_out": "triton",
+        "pack_out": "cuda",
     },
     "unigram_units_np": {
         "unigram_walk": "cuda",
         "unigram_viterbi": "cuda",
-        "pack_out": "triton",
+        "pack_out": "cuda",
     },
     # the data-parallel runners (parallel/mesh.py): each rank's statistics;
     # their segment kernels are those of the bpe, unigram and wordpiece paths
@@ -112,7 +113,7 @@ PATHS = {
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
 
 launches: collections.Counter = collections.Counter()
-_libs: dict = {}
+_fns: dict = {}  # name -> (C entry point, bf_error_string)
 _lock = threading.Lock()
 
 
@@ -203,12 +204,15 @@ def build(with_native: bool = True) -> None:
     build_all(jobs)
 
 
-def _lib(name: str):
+def _load(name: str):
+    """Build every CUDA source once, load each library, and resolve every
+    entry point into ``_fns``: a launch then looks its kernel up in a dict,
+    with no lock and no ``getattr``."""
     with _lock:
-        if name not in _libs:
+        if name not in _fns:
             build(with_native=False)
             for n, (_src, fn, argtypes) in KERNELS.items():
-                if n in _libs:
+                if n in _fns:
                     continue
                 lib = ctypes.CDLL(lib_path(n))
                 f = getattr(lib, fn)
@@ -216,20 +220,26 @@ def _lib(name: str):
                 f.argtypes = argtypes + [_P]
                 lib.bf_error_string.restype = ctypes.c_char_p
                 lib.bf_error_string.argtypes = [ctypes.c_int]
-                _libs[n] = lib
-    return _libs[name]
+                _fns[n] = (f, lib.bf_error_string)
+    return _fns[name]
 
 
 def launch(name: str, device, *args) -> None:
-    """Launch kernel ``name`` on the current stream of ``device``."""
+    """Launch kernel ``name`` on the current stream of ``device`` (a CUDA
+    torch.device with an index), switching the current device only when it
+    differs."""
     import torch
 
-    lib = _lib(name)
-    fn = getattr(lib, KERNELS[name][1])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(*args, stream)
+    fn, err = _fns.get(name) or _load(name)
+    idx = device.index
+    # torch.cuda.current_device() less its lazy-init check: a CUDA tensor
+    # exists, so CUDA is initialised
+    if idx == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
-        msg = lib.bf_error_string(rc).decode()
-        raise RuntimeError(f"kernel {name} failed to launch: {msg} ({rc})")
-    note_launch(name)
+        raise RuntimeError(f"kernel {name} failed to launch: "
+                           f"{err(rc).decode()} ({rc})")
+    launches[name] += 1

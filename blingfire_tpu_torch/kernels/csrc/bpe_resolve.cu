@@ -18,46 +18,48 @@
 //           visited starts (exclusive cummax) and the anomaly flag; unknown
 //           runs come from neighbours in shared memory.
 //   SORT    surviving arcs are compacted into shared memory in slab order
-//           (one block prefix sum per depth), as 64-bit keys
-//           (id, start, slab index) with, in rank mode, a 32-bit rank key
-//           ahead of them (a second word: the 64 bits are full), and sorted
-//           by an in-block bitonic network over the next power of two of
-//           the row's arc count.
-//   CLAIM   one thread walks the sorted arcs with the row's bitmask of
-//           claimed interiors (W = ceil((N+1)/32) words): claim order is
-//           inherently sequential, and a row has a few hundred arcs at most.
-//   EMIT    last claim wins at each start; starts inside a claimed arc are
-//           dropped; a block prefix sum compacts the tokens left.
+//           (one block prefix sum per depth), the first a_max kept, as keys
+//           (segment, [rank,] id, start, end); a block max-scan of each
+//           start's furthest kept end gives the cuts, the positions q that
+//           no kept arc crosses (st < q <= en), and a second scan each
+//           position's segment (its first position); an in-block bitonic
+//           network over the next power of two of the kept arcs sorts them
+//           segment-major.
+//   CLAIM   one thread a segment walks that segment's arcs in sort order
+//           with the unchanged rule (claimed if st and en+1 are not
+//           interior to an earlier claim; a claim marks st+1..en interior),
+//           on a byte a position.  A claim reads only st and en+1 of its own
+//           segment, or the cut that ends it, which no claim marks, and
+//           writes only inside it: the greedy run in the row's sort order
+//           equals the same run per segment (ops/bpe.py::claim_segments
+//           computes the segments on the host).  A row that is one segment
+//           claims serially, as a single thread did.
+//   EMIT    last claim wins at each start (a start's arcs share its
+//           segment); starts inside a claimed arc are dropped; a block
+//           prefix sum compacts the tokens left.
+//
+// Keys.  Plain and priority modes: one 64-bit word, segment (10 bits) at
+// 42, id + 2^20 (21) at 21, start (10) at 11, end (11) at 0.  Rank mode:
+// a 64-bit word, segment at 53, the 32-bit rank key at 21, id + 2^20 at 0,
+// then a 32-bit word, start at 11 and end at 0.  Among arcs of one (id,
+// start), end order is slab order (same start, depth-major; unknown runs
+// never share a start with a match), so the order is the reference's
+// ((rank desc,) id asc, start asc, slab asc) inside each segment, and the
+// claim decodes start and end with shifts.
 //
 // Bound: operations and latency, not bytes.  The row's inputs (LR*N + N
 // int32) are read once, coalesced; everything after FILTER stays in shared
-// memory.  The serial claim costs a few cycles per arc on one thread, so
-// enough rows must be in flight to hide it: blocks are small (N threads).
-// The sort keys take 8 (rank mode 12) bytes an arc of shared memory: at
-// a_max = 4096 a block needs up to 63 KB, past the 48 KB default, so the
-// launch opts in to more (Hopper allows 227 KB a block).
+// memory.  The claim's serial depth is the row's longest segment (a unit
+// row: a unit of at most 64 symbols; a classic row: a word, or two joined
+// by a pair piece), not the row's arc count; the sort's 78 barrier stages
+// at 4,096 arcs then lead.  Shared memory a block: P_max*8 (rank mode 12)
+// + N*12 + N*3 + 1 + 128 bytes: at a_max = 4,096 and N = 1,024, 48,257 B,
+// and in rank mode 64,641 B, past the 48 KB default, so the launch opts in
+// to more (Hopper allows 227 KB a block).  Shared memory then admits four
+// (rank mode three) blocks an SM, and its 2,048 threads two blocks of
+// 1,024, as registers allow (nvcc -Xptxas -v in chip_smoke's build log).
 
 #include "common.cuh"
-
-__device__ __forceinline__ bool bit_at(const uint32_t* mask, int q) {
-    return (mask[q >> 5] >> (q & 31)) & 1u;
-}
-
-// set bits lo..hi (inclusive) of the row mask
-__device__ __forceinline__ void set_range(uint32_t* mask, int lo, int hi) {
-    for (int w = lo >> 5; w <= (hi >> 5); ++w) {
-        const int a = lo - 32 * w > 0 ? lo - 32 * w : 0;
-        const int z = hi - 32 * w < 31 ? hi - 32 * w : 31;
-        const uint32_t upto = z >= 31 ? 0xffffffffu : ((1u << (z + 1)) - 1u);
-        mask[w] |= upto & ~((1u << a) - 1u);
-    }
-}
-
-// ascending order == (id asc as signed int32, start asc, slab asc)
-__device__ __forceinline__ uint64_t make_key(int id, int start, int slab) {
-    return ((uint64_t)((uint32_t)id ^ 0x80000000u) << 32) |
-           ((uint64_t)(uint32_t)start << 16) | (uint64_t)(uint32_t)slab;
-}
 
 // ascending order == descending rank in the reference's order: -0.0 becomes
 // +0.0, the sign-magnitude bits become an ordered int32, NOT reverses it,
@@ -67,6 +69,14 @@ __device__ __forceinline__ uint32_t rank_key(float r) {
     if (bits == INT32_MIN) bits = 0;
     const int32_t asc = bits >= 0 ? bits : (bits ^ 0x7FFFFFFF);
     return (uint32_t)(~asc) ^ 0x80000000u;
+}
+
+constexpr int ID_BIAS = 1 << 20;  // ids lie in [-2^20, 2^20): 21 bits
+constexpr int SEG_SHIFT = 42, RANK_SEG_SHIFT = 53, RANK_SHIFT = 21;
+
+// start and end of an arc: bits 11..20 and 0..10 of the key's last word
+__device__ __forceinline__ uint32_t span_bits(int st, int en) {
+    return ((uint32_t)st << 11) | (uint32_t)en;
 }
 
 template <bool RANK>
@@ -80,16 +90,19 @@ __global__ void bpe_resolve_kernel(
     int32_t* __restrict__ out_ends, int32_t* __restrict__ counts,
     uint8_t* __restrict__ fallback) {
     extern __shared__ unsigned char smem[];
-    const int W = (N + 32) / 32;
+    // keys[i]: (segment, id, start, end), or in rank mode (segment, rank,
+    // id) then span[i] = (start, end)
     uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // P_max
-    uint32_t* rkeys = reinterpret_cast<uint32_t*>(keys + P_max);  // P_max, RANK
-    int32_t* win_id = reinterpret_cast<int32_t*>(rkeys + (RANK ? P_max : 0));  // N
+    uint32_t* span = reinterpret_cast<uint32_t*>(keys + P_max);  // P_max, RANK
+    int32_t* win_id = reinterpret_cast<int32_t*>(span + (RANK ? P_max : 0));  // N
     int32_t* win_end = win_id + N;  // N
-    int32_t* run_end = win_end + N;  // N
-    uint32_t* mask = reinterpret_cast<uint32_t*>(run_end + N);  // W
-    int* buf = reinterpret_cast<int*>(mask + W);  // 32
+    // run_end until the keys are built, then each position's segment, then
+    // each segment's first sorted arc
+    int32_t* pos_a = win_end + N;  // N
+    int* buf = reinterpret_cast<int*>(pos_a + N);  // 32
     uint8_t* unk = reinterpret_cast<uint8_t*>(buf + 32);  // N
     uint8_t* has_win = unk + N;  // N
+    uint8_t* occ = has_win + N;  // N + 1: position inside a claimed arc
 
     const int b = blockIdx.x, p = threadIdx.x;
     const int T = blockDim.x;
@@ -98,6 +111,7 @@ __global__ void bpe_resolve_kernel(
     const bool valid = in && p < len;
     const int64_t row = (int64_t)b * N;
     const bool spm = in && x[row + p] == spm_iw;
+    const int seg_shift = RANK ? RANK_SEG_SHIFT : SEG_SHIFT;
 
     // ---------------------------------------------------------------- FILTER
     int dlast = -1, n_valid = 0;
@@ -120,20 +134,21 @@ __global__ void bpe_resolve_kernel(
     if (in) {
         unk[p] = u;
         has_win[p] = 0;
+        occ[p] = 0;
     }
-    for (int w = p; w < W; w += T) mask[w] = 0;
+    if (p == 0) occ[N] = 0;
     __syncthreads();
     const bool run_start = u && !(p > 0 && unk[p - 1]);
     if (run_start) {
         int q = p;
         while (q + 1 < N && unk[q + 1]) ++q;
-        run_end[p] = q;  // <= N-1
+        pos_a[p] = q;  // run_end, <= N-1
     }
     const bool any_anom = __syncthreads_or(anom) != 0;
     const bool any_ovf = __syncthreads_or(valid && slot_overflow[row + p]) != 0;
 
     // ------------------------------------------------------------------ SORT
-    int base = 0;
+    int base = 0, kend = -1;  // kend: the furthest end of this start's kept arcs
     for (int d = 0; d < LR; ++d) {
         int v = -1;
         const int64_t o = ((int64_t)d * B + b) * N + p;
@@ -142,8 +157,15 @@ __global__ void bpe_resolve_kernel(
         int tot;
         const int ex = block_scan(f ? 1 : 0, buf, OpSum(), 0, nullptr, &tot);
         if (f && base + ex < a_max) {
-            keys[base + ex] = make_key(v & 0xFFFFF, p, d * N + p);
-            if (RANK) rkeys[base + ex] = rank_key(m_rank[o]);
+            const uint64_t idb = (uint64_t)((v & 0xFFFFF) + ID_BIAS);
+            if (RANK) {
+                keys[base + ex] =
+                    ((uint64_t)rank_key(m_rank[o]) << RANK_SHIFT) | idb;
+                span[base + ex] = span_bits(p, p + d);
+            } else {
+                keys[base + ex] = (idb << 21) | span_bits(p, p + d);
+            }
+            kend = p + d;
         }
         base += tot;
     }
@@ -151,18 +173,36 @@ __global__ void bpe_resolve_kernel(
         int tot;
         const int ex = block_scan(run_start ? 1 : 0, buf, OpSum(), 0, nullptr, &tot);
         if (run_start && base + ex < a_max) {
-            keys[base + ex] = make_key(prio2id ? 0 : unk_id, p, LR * N + p);
-            if (RANK) rkeys[base + ex] = rank_key(0.0f);  // an unknown run's rank
+            const int en = pos_a[p];
+            const uint64_t idb = (uint64_t)((prio2id ? 0 : unk_id) + ID_BIAS);
+            if (RANK) {  // an unknown run's rank is +0.0
+                keys[base + ex] = ((uint64_t)rank_key(0.0f) << RANK_SHIFT) | idb;
+                span[base + ex] = span_bits(p, en);
+            } else {
+                keys[base + ex] = (idb << 21) | span_bits(p, en);
+            }
+            kend = en;
         }
         base += tot;
     }
     const int n_arcs = base;
     const int n_keep = n_arcs < a_max ? n_arcs : a_max;
+    // cuts: q is one when no kept arc starting before q ends at or past it
+    const int cover = block_scan(in ? kend : -1, buf, OpMax(), -1, nullptr, nullptr);
+    const bool cut = in && (p == 0 || cover < p);
+    int seg;
+    block_scan(cut ? p : 0, buf, OpMax(), 0, &seg, nullptr);
+    if (in) pos_a[p] = seg;  // this thread alone read its run_end
+    __syncthreads();
+    for (int i = p; i < n_keep; i += T) {
+        const int st = (int)(((RANK ? span[i] : (uint32_t)keys[i]) >> 11) & 0x3FF);
+        keys[i] |= (uint64_t)pos_a[st] << seg_shift;
+    }
     int P = 1;
     while (P < n_keep) P <<= 1;
     for (int i = n_keep + p; i < P; i += T) {
         keys[i] = ~0ull;
-        if (RANK) rkeys[i] = ~0u;
+        if (RANK) span[i] = ~0u;
     }
     __syncthreads();
     for (int k = 2; k <= P; k <<= 1) {
@@ -173,11 +213,11 @@ __global__ void bpe_resolve_kernel(
                     const uint64_t a = keys[i], c = keys[l];
                     bool gt = a > c;
                     if (RANK) {
-                        const uint32_t ra = rkeys[i], rc = rkeys[l];
-                        gt = ra > rc || (ra == rc && gt);
+                        const uint32_t sa = span[i], sc = span[l];
+                        gt = gt || (a == c && sa > sc);
                         if (gt == ((i & k) == 0)) {
-                            rkeys[i] = rc;
-                            rkeys[l] = ra;
+                            span[i] = sc;
+                            span[l] = sa;
                         }
                     }
                     if (gt == ((i & k) == 0)) {
@@ -191,25 +231,24 @@ __global__ void bpe_resolve_kernel(
     }
 
     // ----------------------------------------------------------------- CLAIM
-    if (p == 0) {
-        for (int a = 0; a < n_keep; ++a) {
+    if (in) pos_a[p] = -1;
+    __syncthreads();
+    for (int i = p; i < n_keep; i += T) {
+        const int s = (int)(keys[i] >> seg_shift);
+        if (i == 0 || (int)(keys[i - 1] >> seg_shift) != s) pos_a[s] = i;
+    }
+    __syncthreads();
+    if (in && pos_a[p] >= 0) {
+        for (int a = pos_a[p]; a < n_keep; ++a) {
             const uint64_t key = keys[a];
-            const int slab = (int)(key & 0xFFFFu);
-            const int id = (int)((uint32_t)(key >> 32) ^ 0x80000000u);
-            int st, en;
-            if (slab < LR * N) {
-                st = slab % N;
-                en = st + slab / N;
-            } else {
-                st = slab - LR * N;
-                en = run_end[st];
-            }
-            const int q1 = st < N ? st : N;
+            if ((int)(key >> seg_shift) != p) break;
+            const uint32_t sp = RANK ? span[a] : (uint32_t)key;
+            const int st = (int)((sp >> 11) & 0x3FF), en = (int)(sp & 0x7FF);
+            const int id = (int)((RANK ? key : key >> 21) & 0x1FFFFF) - ID_BIAS;
             const int q2 = en + 1 < N ? en + 1 : N;
-            const bool free1 = !bit_at(mask, q1);
-            const bool free2 = (en + 1 >= len) || !bit_at(mask, q2);
-            if (free1 && free2) {
-                if (en >= st + 1) set_range(mask, st + 1, en);
+            if (!occ[st] && (en + 1 >= len || !occ[q2])) {
+                const int hi = en < N ? en : N;
+                for (int q = st + 1; q <= hi; ++q) occ[q] = 1;
                 win_id[st] = id;  // a later claim at the same start wins
                 win_end[st] = en;
                 has_win[st] = 1;
@@ -219,7 +258,7 @@ __global__ void bpe_resolve_kernel(
     __syncthreads();
 
     // ------------------------------------------------------------------ EMIT
-    const bool tok = valid && has_win[p] && !bit_at(mask, p);
+    const bool tok = valid && has_win[p] && !occ[p];
     int count;
     const int slot = block_scan(tok ? 1 : 0, buf, OpSum(), 0, nullptr, &count);
     if (tok) {
@@ -254,9 +293,8 @@ static int launch(const int32_t* m_pack, const float* m_rank,
     const int T = ((N + 31) / 32) * 32;
     int P_max = 1;
     while (P_max < a_max) P_max <<= 1;
-    const int W = (N + 32) / 32;
     const size_t smem = (size_t)P_max * (RANK ? 12 : 8) + (size_t)N * 12 +
-                        (size_t)W * 4 + 32 * 4 + (size_t)N * 2;
+                        32 * 4 + (size_t)N * 3 + 1;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             bpe_resolve_kernel<RANK>, cudaFuncAttributeMaxDynamicSharedMemorySize,

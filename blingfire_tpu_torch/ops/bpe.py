@@ -8,7 +8,9 @@ The reference's sequential per-string algorithm
   2. FILTER   the bpe-opt whole-token optimisation, fast-forward skips and
               unknown-run merging;
   3. SORT     arcs ordered by (id asc, start asc);
-  4. CLAIM    greedy non-overlap resolution with a per-row bitmask;
+  4. CLAIM    greedy non-overlap resolution with a per-row bitmask (K2
+              claims each segment between cuts on its own thread:
+              :func:`claim_segments`);
   5. EMIT     claimed arcs written at their start and compacted left.
 
 Three kernels live here, each beside its plain PyTorch version:
@@ -515,6 +517,65 @@ def _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
     out_ends = emit_compact(grid_tos)
     fallback = (slot_overflow & valid).any(dim=1) | arc_overflow | anomaly
     return out_ids, out_starts, out_ends, counts, fallback
+
+
+@dataclass
+class ClaimArcs:
+    """The arcs K2 keeps, in slab order (B, LR*N + N lanes: slot-major
+    matches, then the unknown runs), with the claim segment of each."""
+
+    start: torch.Tensor  # int32
+    end: torch.Tensor  # int32
+    id: torch.Tensor  # int32: the match's id (or priority); a run's unk id
+    rank: torch.Tensor | None  # float32 in rank mode (a run's +0.0)
+    keep: torch.Tensor  # bool: an arc, and among the row's first a_max
+    seg: torch.Tensor  # int32: cuts at or before the start
+    n_arcs: torch.Tensor  # (B,) int64: arcs before the a_max cut
+    depth: torch.Tensor  # (B,) int64: the largest segment's kept arcs
+
+
+def claim_segments(tables, m_pack, m_rank, x_iw, lengths, spm_iw: int,
+                   unk_id: int, a_max: int) -> ClaimArcs:
+    """K2's claim segments, on the host: position q (0 < q < N) is a cut
+    when no kept arc has st < q <= en, and an arc's segment is the number
+    of cuts at or before its start.  No claim marks a cut interior, and a
+    claim reads only its own segment's positions and the cut that ends it,
+    so claiming each segment on its own, in the row's sort order, gives the
+    row's claims; ``depth`` is the serial claim depth of K2.  The tests and
+    chip_smoke.py use it; no path runs it."""
+    LR, B, N = m_pack.shape
+    dev = m_pack.device
+    i32 = torch.int32
+    pos = torch.arange(N, dtype=i32, device=dev)
+    dslot = torch.arange(LR, dtype=i32, device=dev)[:, None, None]
+    survive, run_start, run_end, _anomaly, _valid = _filter_plain(
+        tables, m_pack, x_iw, lengths, spm_iw)
+
+    def flat(a):  # (LR, B, N) -> (B, LR*N)
+        return a.permute(1, 0, 2).reshape(B, LR * N)
+
+    start = torch.cat([pos.repeat(LR)[None, :].expand(B, LR * N),
+                       pos[None, :].expand(B, N)], dim=1)
+    end = torch.cat([flat((pos[None, None, :] + dslot).expand(LR, B, N)),
+                     run_end.clamp(max=N - 1)], dim=1)
+    run_id = 0 if tables.prio2id is not None else unk_id
+    ids = torch.cat([flat(m_pack & 0xFFFFF),
+                     torch.full((B, N), run_id, dtype=i32, device=dev)], dim=1)
+    rank = None if m_rank is None else torch.cat(
+        [flat(m_rank), torch.zeros((B, N), dtype=torch.float32, device=dev)],
+        dim=1)
+    arc = torch.cat([flat(survive), run_start], dim=1)
+    keep = arc & (arc.to(torch.int64).cumsum(dim=1) <= a_max)
+    far = torch.full((B, N), -1, dtype=i32, device=dev).scatter_reduce(
+        1, start.long(), torch.where(keep, end, -1), reduce="amax")
+    cover = torch.cummax(far, dim=1).values
+    cut = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                     cover[:, :-1] < pos[None, 1:]], dim=1)
+    seg = cut.to(i32).cumsum(dim=1, dtype=i32).gather(1, start.long())
+    size = torch.zeros((B, N), dtype=torch.int64, device=dev).scatter_add(
+        1, seg.long(), keep.to(torch.int64))
+    return ClaimArcs(start, end, ids, rank, keep, seg,
+                     arc.sum(dim=1), size.amax(dim=1))
 
 
 def bpe_resolve(

@@ -218,7 +218,7 @@ def _pack_out_plain(ids, starts, counts, fb):
 
 def pack_out(ids, starts, counts, fb, out=None):
     """(B, 2N+2) int32 rows: the N ids, the N starts, the token count and
-    the fallback flag.  K11 (kernels/pack_triton.py) on a CUDA tensor; the
+    the fallback flag.  K11 (kernels/csrc/pack_out.cu) on a CUDA tensor; the
     plain version on a CPU tensor."""
     return _pack(ids, starts, counts, fb, out, 2 * ids.shape[1] + 2,
                  _pack_out_plain, "pack_out")
@@ -237,6 +237,32 @@ def pack_out_compact(ids, starts, counts, fb, out=None):
                  _pack_out_compact_plain, "pack_out_compact")
 
 
+def _check_pack(ids, starts, counts, fb, out, width: int) -> None:
+    """Raise unless the four inputs and ``out`` are contiguous, of their
+    dtypes and shapes, on one device: one pass, naming the first offender
+    only when one fails."""
+    B, N = ids.shape
+    dev = ids.get_device()  # an int: cheaper than comparing torch.devices
+    i32 = torch.int32
+    if (ids.dtype == starts.dtype == counts.dtype == out.dtype == i32
+            and fb.dtype == torch.bool and starts.shape == ids.shape
+            and counts.shape == fb.shape == (B,) and out.shape == (B, width)
+            and ids.is_contiguous() and starts.is_contiguous()
+            and counts.is_contiguous() and fb.is_contiguous()
+            and out.is_contiguous()
+            and starts.get_device() == counts.get_device() == fb.get_device()
+            == out.get_device() == dev):
+        return
+    for t, dtype, shape, name in ((ids, i32, (B, N), "ids"),
+                                  (starts, i32, (B, N), "starts"),
+                                  (counts, i32, (B,), "counts"),
+                                  (fb, torch.bool, (B,), "fb"),
+                                  (out, i32, (B, width), "out")):
+        kernels.check(t, dtype, shape, name)
+        if t.get_device() != dev:
+            raise ValueError(f"{name} is on {t.device}, ids on {ids.device}")
+
+
 def _pack(ids, starts, counts, fb, out, width: int, plain, name: str):
     """K4 or K11 (``name``) into ``out`` (B, width), or its plain version."""
     if not kernels.on_card(ids):
@@ -246,24 +272,21 @@ def _pack(ids, starts, counts, fb, out, width: int, plain, name: str):
         out.copy_(res)
         return out
     B, N = ids.shape
-    kernels.check(ids, torch.int32, (B, N), "ids")
-    kernels.check(starts, torch.int32, (B, N), "starts")
-    kernels.check(counts, torch.int32, (B,), "counts")
-    kernels.check(fb, torch.bool, (B,), "fb")
     if out is None:
-        out = torch.empty((B, width), dtype=torch.int32, device=ids.device)
-    kernels.check(out, torch.int32, (B, width), "out")
+        out = ids.new_empty((B, width))  # ids' dtype and device
+    _check_pack(ids, starts, counts, fb, out, width)
     if B == 0:
+        return out
+    if name == "pack_out":
+        kernels.launch("pack_out", ids.device, ids.data_ptr(),
+                       starts.data_ptr(), counts.data_ptr(), fb.data_ptr(),
+                       out.data_ptr(), B, N)
         return out
     from ..kernels import pack_triton
 
     with torch.cuda.device(ids.device):
-        if name == "pack_out":
-            pack_triton.launch_full(ids, starts, counts, fb.view(torch.uint8),
-                                    out)
-        else:
-            pack_triton.launch(ids, starts, counts, fb.view(torch.uint8), out,
-                               ID_SHIFT)
+        pack_triton.launch(ids, starts, counts, fb.view(torch.uint8), out,
+                           ID_SHIFT)
     kernels.note_launch(name)
     return out
 

@@ -402,6 +402,83 @@ def rank_fault_model_bytes() -> bytes:
         use_byte_encoding=False))
 
 
+RESOLVE_RANKS = np.array([-0.0, 0.0, -1.5, -2.0, -3.25, -7.0, -40.0],
+                         np.float32)  # few values: rank ties are frequent
+
+
+def _resolve_case(name, arcs, lengths, N, LR, a_max, spm_iw, rng,
+                  mixed: bool = False):
+    """One launch of K2 inputs from ``arcs``, a list per row of (d, p)
+    slots holding a match: seeded ids and ranks from RESOLVE_RANKS; with
+    ``mixed``, the whole-token bit (27) on a third of the matches, ▁ at a
+    sixth of the valid positions and slot_overflow on 1% (the fast-forward,
+    its anomaly and the overflow flag)."""
+    B = len(arcs)
+    m_pack = np.full((LR, B, N), -1, np.int32)
+    for b, slots in enumerate(arcs):
+        d, p = (np.asarray(v, np.int64) for v in zip(*slots)) if slots \
+            else (np.zeros(0, np.int64),) * 2
+        ids = rng.integers(0, 1 << 20, len(d)).astype(np.int32)
+        whole = mixed & (rng.random(len(d)) < 1 / 3)
+        m_pack[d, b, p] = ids | (whole.astype(np.int32) << 27)
+    m_rank = np.where(m_pack >= 0, rng.choice(RESOLVE_RANKS, m_pack.shape),
+                      0).astype(np.float32)
+    lengths = np.asarray(lengths, np.int32)
+    valid = np.arange(N)[None, :] < lengths[:, None]
+    x = rng.integers(0, 50, (B, N)).astype(np.int32)
+    if mixed:
+        x[(rng.random((B, N)) < 1 / 6)] = spm_iw
+    x[~valid] = -1
+    so = valid & mixed & (rng.random((B, N)) < 0.01)
+    return dict(name=name, m_pack=m_pack, m_rank=m_rank, slot_overflow=so,
+                x=x, lengths=lengths, a_max=a_max)
+
+
+def resolve_edge_rows(spm_iw: int, n: int = 1024, seed: int = 0) -> list[dict]:
+    """Seeded K2 (bpe_resolve) launches at its limits, as NumPy arrays:
+    m_pack (LR, B, N), m_rank, slot_overflow, x, lengths and a_max each.
+    At the default ``n`` = 1,024 (K2's widest row) the a_max values are
+    K2's 4,096 and below; a smaller ``n`` scales them by n / 1,024.
+
+    * ``one_segment``: a row of N = n whose 4n arcs (every start to depth
+      3, six to depth 4) cross every position, so the claim is one segment
+      at a_max = 4n; beside it a row of length 0.68n whose last 50 valid
+      positions hold no match (an unknown run at its end).
+    * ``truncation``: a row whose arcs join blocks of 4 positions (2.5n) and
+      then cross every position at depth 4 (n - 4 more): past a_max =
+      2.93n it is flagged, and the cut keeps the crossing arcs of the first
+      starts only, so the row's one segment splits.
+    * ``random``: rows of widths n, 200 (at most n) and 37 with matches at a
+      seeded share of the slots (lengths below N, one 0), gaps that make
+      unknown runs, the fast-forward and slot_overflow, at a_max 4n and at
+      a_max 48 (most rows flagged)."""
+    rng = np.random.default_rng(seed)
+    N = n
+    full = [(d, p) for d in range(4) for p in range(N - d)] + \
+        [(4, p) for p in range(6)]
+    ln_short = N * 700 // 1024
+    short = [(d, p) for d in range(4) for p in range(ln_short - 50 - d)]
+    cases = [_resolve_case("one_segment", [full, short], [N, ln_short], N, 5,
+                           4 * N, spm_iw, rng)]
+    blocks = [(d, p) for d in range(4) for p in range(N) if p % 4 + d < 4]
+    cross = [(4, p) for p in range(N - 4)]
+    cases.append(_resolve_case("truncation", [blocks + cross, blocks],
+                               [N, N], N, 5, N * 3000 // 1024, spm_iw, rng))
+    for w, a_max in ((N, 4 * N), (min(200, N), 4 * N), (37, 48), (N, 48)):
+        LR = 8
+        lengths = rng.integers(1, w + 1, 6)
+        lengths[0], lengths[1] = w, 0
+        arcs = []
+        for ln in lengths:
+            share = rng.choice([0.1, 0.35, 0.7])
+            gap = rng.random(w) < 0.08  # starts with no match: unknown runs
+            arcs.append([(d, p) for d in range(LR) for p in range(ln - d)
+                         if not gap[p] and rng.random() < share])
+        cases.append(_resolve_case(f"random_{w}_{a_max}", arcs, lengths, w,
+                                   LR, a_max, spm_iw, rng, mixed=True))
+    return cases
+
+
 def unigram_edge_rows():
     """(model image, x_iw int32 (R, 12), lengths int32 (R,)) of hand-made
     rows for the unigram kernels, on a tiny unigram model of max_len 3:

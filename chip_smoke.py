@@ -16,7 +16,9 @@ Phases, each of which must pass (any failure exits non-zero):
               documents must equal the port's scalar oracle;
   5. kernels  each BPE kernel's wrapper against its plain PyTorch version on
               the card, on packed rows of all three row regions at the main
-              path's shapes; integers must agree exactly (tolerance 0);
+              path's shapes; integers must agree exactly (tolerance 0); K2's
+              claim depth (ops/bpe.py::claim_segments) beside its arcs a
+              row; K3 and its library call timed in turns;
   6. model-u  a seeded xlnet-shaped unigram-LM vocabulary (32,000 entries)
               with its charmap; its automaton's shape and table mode;
   7. main-u   the unigram path, as phase 4, over the same corpus: K5, K6 and
@@ -99,7 +101,7 @@ Phases, each of which must pass (any failure exits non-zero):
  25. kernels-b K1 (comb + rank, trie + rank) and K2 (rank) against their
               plain versions on every launch (every row width) of the
               classic rows of one uncached 4 MiB batch, and on the rows of
-              the rank-fault model; tolerance 0;
+              the rank-fault model; tolerance 0; K2's claim depth a launch;
  26. main-ww  a window past the compact lanes and K2's rows: the
               gpt2-shaped model's SpTokenizer(max_doc_symbols=2048)
               .encode_corpus_flat over the corpus (first, second, profiled
@@ -112,7 +114,11 @@ Phases, each of which must pass (any failure exits non-zero):
  27. kernels-p K11 pack_out (and K1 and K2, or K5 and K6, whose output it
               packs) against their plain versions on every launch of the
               NumPy unit path of one uncached 4 MiB batch at main-ww's window,
-              for both models; K11's library call is torch.cat; tolerance 0;
+              for both models; K11 (into a given output, as the path calls
+              it) against torch.cat(..., out=); tolerance 0;
+              K2's claim depth a launch; K11's host time a call by part
+              (checks, allocation, device, stream, pointers, ctypes call)
+              over 1,000 calls at the first launch's shape;
  28. main-dp  the data-parallel runners in an NCCL group of one process (one
               card; more ranks are not shown here): ShardedSpRunner.run and
               run_units of the gpt2- and xlnet-shaped models at 128 symbols
@@ -192,7 +198,7 @@ SOURCES = {
                     for p in ("words", "sentences", "wp_lexer")}),
     "hyph_segment": ("blingfire_tpu_torch/kernels/csrc/hyph_segment.cu",
                      {"hyph": "blingfire_tpu/ops/hyph.py:67"}),
-    "pack_out": ("blingfire_tpu_torch/kernels/pack_triton.py",
+    "pack_out": ("blingfire_tpu_torch/kernels/csrc/pack_out.cu",
                  {p: "blingfire_tpu/runtime/dedup.py:210"
                   for p in ("bpe_units_np", "unigram_units_np")}),
     "shard_stats": ("blingfire_tpu_torch/kernels/csrc/shard_stats.cu",
@@ -213,7 +219,8 @@ KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "wp_subword_comb": ("wp_subword_comb_kernel",),
                 "lexer_pass": ("lexer_pass_kernel",),
                 "hyph_segment": ("hyph_segment_kernel",),
-                "pack_out": ("_pack_full_kernel",),
+                "pack_out": ("pack_out_pair_kernel",
+                             "pack_out_scalar_kernel"),
                 "shard_stats": ("shard_stats_kernel",)}
 HYPHEN = 0x2012  # the hyphen WordHyphenationWithModel inserts by default
 # document 107 of tests/corpus.py::full_corpus(n_random=60): the JAX
@@ -442,13 +449,17 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
     ti = torch.from_numpy(np.asarray(edge_idx, np.int64)).to(dev)
     tv = torch.from_numpy(np.asarray(edge_val, np.int32)).to(dev)
     size = tables.trie_next.numel()
-    scatter_vs_plain(stats[("scatter_trie", "bpe")], bpe_ops, ti, tv, size,
-                     tables.trie_next, dev)
+    s = stats[("scatter_trie", "bpe")]
+    scatter_vs_plain(s, bpe_ops, ti, tv, size, tables.trie_next, dev)
+    log(f"[kernels] scatter_trie on the trie: {size} int32 from {ti.numel()} "
+        f"edges, {s['ms']:.4f} ms, library {s['library_ms']:.4f} ms (in "
+        f"turns: kernel, library, library, kernel "
+        f"{[round(v, 5) for v in s['turns']]})")
 
     for x, ln, lw, bounded in regions:
         B, N = x.shape
         before = {k: stats[k]["ms"] for k in stats}
-        r_k, r, _k_ms, _v_ms = bpe_pair_vs_plain(
+        r_k, r, _k_ms, _v_ms, claim = bpe_pair_vs_plain(
             stats, "bpe", bpe_ops, tables, x, ln, spm, a_max, lw, bounded)
         # K4 on the kernel's resolve output
         ids_k, st_k, _e, cnt_k, fb_k = r_k
@@ -459,7 +470,7 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         log(f"[kernels] region rows={B} lw={lw} bounded={bounded}: walk, "
             f"resolve, pack equal their plain versions; fallback rows "
             f"{int(fb_k.sum())}; trie entries read {r.entries('trie_next')} "
-            f"in {r.steps} live lane-steps; ms per launch {per}")
+            f"in {r.steps} live lane-steps; ms per launch {per}; {claim}")
 
     def once():
         bpe_ops.scatter_trie(ti, tv, size)
@@ -482,7 +493,9 @@ def bpe_pair_vs_plain(stats, path: str, bpe_ops, t, x, ln, spm: int,
     versions on rows ``x``: errors, event times (``reps``: kernel, plain
     walk, plain resolve) and the bound's bytes and operations into
     ``stats[(kernel, path)]``.  Returns (K2's output, the walk's reads,
-    K1 ms, K2 ms)."""
+    K1 ms, K2 ms, K2's claim: a log fragment with its depth, the largest
+    segment's kept arcs (ops/bpe.py::claim_segments), beside the kept arcs
+    a row)."""
     B, N = x.shape
     LW = bpe_ops._walk_depth(t, lw)
     ovf = t.max_len > LW and not bounded
@@ -529,7 +542,12 @@ def bpe_pair_vs_plain(stats, path: str, bpe_ops, t, x, ln, spm: int,
         + 3 * B * N * 4 + B * 4 + B
     # least work: read the slots, a comparison sort and a claim per arc
     s["ops"] += LW * B * N + int((n_arcs * lg).sum()) + 2 * int(n_arcs.sum())
-    return r_k, r, k_ms, v_ms
+    arcs = bpe_ops.claim_segments(t, m_k, mr_k, x, ln, spm, 0, a_max)
+    kept = arcs.keep.sum(dim=1).double()
+    claim = (f"K2 claim depth {int(arcs.depth.max())} (mean "
+             f"{float(arcs.depth.double().mean()):.1f}) against kept arcs a "
+             f"row up to {int(kept.max())} (mean {float(kept.mean()):.1f})")
+    return r_k, r, k_ms, v_ms, claim
 
 
 def uni_pair_vs_plain(stats, path: str, uni_ops, tables, x, ln, lw_eff,
@@ -577,11 +595,20 @@ def scatter_vs_plain(s, bpe_ops, ti, tv, size: int, built, dev) -> None:
     torch.cuda.synchronize()
     s["err"] = max_abs_err([(k3, p3), (k3, built)])
     del k3, p3
-    s["ms"] = cuda_ms(lambda: bpe_ops.scatter_trie(ti, tv, size), 20)
     s["plain_ms"] = cuda_ms(lambda: bpe_ops._scatter_trie_plain(ti, tv, size), 20)
-    s["library_ms"] = cuda_ms(
-        lambda: torch.full((size,), -1, dtype=torch.int32, device=dev)
-        .index_put_((ti,), tv), 20)
+
+    def kernel():
+        return bpe_ops.scatter_trie(ti, tv, size)
+
+    def library():
+        return torch.full((size,), -1, dtype=torch.int32,
+                          device=dev).index_put_((ti,), tv)
+
+    # in turns (kernel, library, library, kernel): the two in one window
+    turns = [cuda_ms(f, 20) for f in (kernel, library, library, kernel)]
+    s["ms"] = (turns[0] + turns[3]) / 2
+    s["library_ms"] = (turns[1] + turns[2]) / 2
+    s["turns"] = turns
     s["bytes"] = ti.numel() * 12 + size * 4
     s["ops"] = ti.numel()
 
@@ -745,7 +772,9 @@ def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
     log(f"[kernels-w] scatter_trie on the dense sub-grammar: {size} int32 "
         f"from {ti.numel()} edges, {s['ms']:.4f} ms, device "
         f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, library "
-        f"{s['library_ms']:.4f} ms, max_abs_err {s['err']}")
+        f"{s['library_ms']:.4f} ms (in turns: kernel, library, library, "
+        f"kernel {[round(v, 5) for v in s['turns']]}), max_abs_err "
+        f"{s['err']}")
     stats.update(k3)
     return stats
 
@@ -1018,6 +1047,42 @@ def check_native(tok, native, docs, ids, bounds, label: str) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def classic_launches(tok, sub, launch_rows, dev) -> list:
+    """(x, lengths) of every launch (every row width) of the classic rows of
+    ``sub`` on the card."""
+    x, ln, _status = tok._prep_batch(sub)
+    keep = np.flatnonzero(ln > 0)
+    x, ln = x[keep], ln[keep]
+    launches = []
+    for w, idx in tok._row_groups(ln):
+        step = launch_rows(tok, w, None)
+        for lo in range(0, len(idx), step):
+            part = idx[lo : lo + step]
+            launches.append((
+                torch.from_numpy(np.ascontiguousarray(x[part, :w])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(ln[part])).to(dev)))
+    return launches
+
+
+def units_np_launches(tok, sub, dedup, bpe_ops, dev):
+    """The NumPy unit path's rows of ``sub``: (its unit batch, the row
+    width, [(x, lengths) of every launch on the card], split and pack
+    seconds on the host)."""
+    x, spm, ln, _status = tok._prep_batch(sub, with_spm=True)
+    t0 = time.perf_counter()
+    ub = dedup.split_units(x, spm, ln)
+    t_split = time.perf_counter() - t0
+    W = min(tok.n_doc, bpe_ops.RESOLVE_MAX_N)
+    t0 = time.perf_counter()
+    px, plen, _row, _off = dedup.pack_units(ub, W)
+    t_pack = time.perf_counter() - t0
+    step = dedup.launch_rows(tok, W, None)
+    launches = [(torch.from_numpy(px[lo : lo + step]).to(dev),
+                 torch.from_numpy(plen[lo : lo + step]).to(dev))
+                for lo in range(0, len(px), step)]
+    return ub, W, launches, t_split, t_pack
+
+
 def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
     """Phase 25: K1 and K2 against their plain versions on the rows of every
     launch (every row width) of the classic rows of one uncached CMP_BYTES
@@ -1029,28 +1094,18 @@ def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
     for mode, tok in toks.items():
         t = tok.tables
         spm, a_max = tok._spm_iw, tok.a_max
-        x, ln, _status = tok._prep_batch(sub)
-        keep = np.flatnonzero(ln > 0)
-        x, ln = x[keep], ln[keep]
         stats = new_stats(("bpe_walk", "bpe_resolve"), "bpe_classic")
-        launches = []
-        for w, idx in tok._row_groups(ln):
-            step = launch_rows(tok, w, None)
-            for lo in range(0, len(idx), step):
-                part = idx[lo : lo + step]
-                launches.append((
-                    torch.from_numpy(np.ascontiguousarray(x[part, :w])).to(dev),
-                    torch.from_numpy(np.ascontiguousarray(ln[part])).to(dev)))
+        launches = classic_launches(tok, sub, launch_rows, dev)
         for xd, ld in launches:
             B, W = xd.shape
-            r_k, r, k_ms, v_ms = bpe_pair_vs_plain(
+            r_k, r, k_ms, v_ms, claim = bpe_pair_vs_plain(
                 stats, "bpe_classic", bpe_ops, t, xd, ld, spm, a_max,
                 reps=(20, 2, 1))
             log(f"[kernels-b] {mode} rank: {B} rows of width {W}: walk and "
                 f"resolve equal their plain versions; ms per launch walk "
                 f"{k_ms:.5f} resolve {v_ms:.5f}; fallback rows "
                 f"{int(r_k[4].sum())}; table bytes read {r.table_bytes()} in "
-                f"{r.steps} live lane-steps")
+                f"{r.steps} live lane-steps; {claim}")
             del r_k
 
         def once():
@@ -1172,12 +1227,14 @@ def run_dp(mesh, toks, want, hyb, sub, testing, dedup, native, dev):
     return slabs
 
 
-def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
+def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, kernels,
+                     dev) -> dict:
     """Phase 27: K11 against its plain version (and the segment kernels
     whose output it packs: K1 and K2, or K5 and K6) on every launch of the
     NumPy unit path of one uncached CMP_BYTES batch, for each tokenizer of
-    ``toks`` (path -> SpTokenizer at WIDE_DOC); K11's library call is one
-    torch.cat of the same planes."""
+    ``toks`` (path -> SpTokenizer at WIDE_DOC); K11 is timed into an output
+    allocated beforehand, as UnitRunner.dispatch calls it, and its library
+    call is one torch.cat of the same planes into such an output."""
     sub = corpus_prefix(docs, CMP_BYTES)
     stats = {}
     for path, tok in toks.items():
@@ -1185,32 +1242,23 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
                else ("unigram_walk", "unigram_viterbi"))
         st = new_stats(seg + ("pack_out",), path)
         runner = tok._unit_runner()
-        x, spm, ln, _status = tok._prep_batch(sub, with_spm=True)
-        t0 = time.perf_counter()
-        ub = dedup.split_units(x, spm, ln)
-        t_split = time.perf_counter() - t0
-        W = min(tok.n_doc, bpe_ops.RESOLVE_MAX_N)
-        t0 = time.perf_counter()
-        px, plen, _row, _off = dedup.pack_units(ub, W)
-        t_pack = time.perf_counter() - t0
-        step = dedup.launch_rows(tok, W, None)
-        launches = [(torch.from_numpy(px[lo : lo + step]).to(dev),
-                     torch.from_numpy(plen[lo : lo + step]).to(dev))
-                    for lo in range(0, len(px), step)]
+        ub, W, launches, t_split, t_pack = units_np_launches(
+            tok, sub, dedup, bpe_ops, dev)
         log(f"[kernels-p] {path}: {len(ub.inst_unit)} unit instances, "
             f"{len(ub.u_len)} distinct, {int(ub.classic.sum())} docs with a "
             f"unit past {dedup.UNIT_MAX}; split and dedup {t_split:.3f} s, "
-            f"pack {t_pack:.3f} s (host); {len(px)} rows of {W} in "
-            f"{len(launches)} launches")
+            f"pack {t_pack:.3f} s (host); {sum(len(x) for x, _l in launches)} "
+            f"rows of {W} in {len(launches)} launches")
         a_max = min(tok.a_max, bpe_ops.RESOLVE_MAX_ARCS)
         packs = []
         for xd, ld in launches:
             B = xd.shape[0]
             if tok.is_bpe:
-                r_k, _r, k_ms, v_ms = bpe_pair_vs_plain(
+                r_k, _r, k_ms, v_ms, claim = bpe_pair_vs_plain(
                     st, path, bpe_ops, tok.tables, xd, ld, runner.spm_iw,
                     a_max, reps=(20, 2, 1))
                 fb = r_k[4]
+                log(f"[kernels-p] {path}: {B} rows of {xd.shape[1]}: {claim}")
             else:
                 r_k, _r, k_ms, v_ms = uni_pair_vs_plain(
                     st, path, uni_ops, tok.tables, xd, ld, None,
@@ -1224,19 +1272,35 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
             o_p = dedup._pack_out_plain(ids, sts, cnt, fb)
             torch.cuda.synchronize()
             s["err"] = max(s["err"], max_abs_err([(o_k, o_p)]))
-            p_ms = cuda_ms(lambda: dedup.pack_out(ids, sts, cnt, fb), 50)
-            s["ms"] += p_ms
             s["plain_ms"] += cuda_ms(
                 lambda: dedup._pack_out_plain(ids, sts, cnt, fb), 50)
             cols = [ids, sts, cnt[:, None], fb.to(torch.int32)[:, None]]
-            s["library_ms"] = (s["library_ms"] or 0.0) + cuda_ms(
-                lambda: torch.cat(cols, dim=1), 50)
+            # into an output allocated beforehand, as UnitRunner.dispatch
+            # calls it (a slice of the batch's rows), and torch.cat likewise,
+            # in turns (kernel, library, library, kernel)
+            turns = [cuda_ms(f, 50) for f in (
+                lambda: dedup.pack_out(ids, sts, cnt, fb, out=o_k),
+                lambda: torch.cat(cols, dim=1, out=o_p),
+                lambda: torch.cat(cols, dim=1, out=o_p),
+                lambda: dedup.pack_out(ids, sts, cnt, fb, out=o_k))]
+            p_ms = (turns[0] + turns[3]) / 2
+            s["ms"] += p_ms
+            s["library_ms"] = (s["library_ms"] or 0.0) + (turns[1]
+                                                           + turns[2]) / 2
+            log(f"[kernels-p] {path}: K11 and torch.cat into a given output "
+                f"in turns (kernel, library, library, kernel): "
+                f"{[round(v, 5) for v in turns]} ms")
             s["bytes"] += 2 * B * N * 4 + B * 4 + B + B * (2 * N + 2) * 4
             s["ops"] += B * (2 * N + 2)
             log(f"[kernels-p] {path}: {B} rows of {N}: segment and pack "
                 f"equal their plain versions; ms per launch {seg[0]} "
                 f"{k_ms:.5f} {seg[1]} {v_ms:.5f} pack_out {p_ms:.5f}; "
                 f"fallback rows {int(fb.sum())}")
+            if len(packs) == 1:
+                ns = pack_host_ns(dedup, kernels, ids, sts, cnt, fb)
+                log(f"[kernels-p] {path}: K11's host ns a call at {B} rows of "
+                    f"{N} (1,000 calls a part): "
+                    f"{ {k: round(v) for k, v in ns.items()} }")
 
         def once():
             for (xd, ld), (ids, sts, cnt, fb) in zip(launches, packs):
@@ -1252,6 +1316,48 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
                 f"max_abs_err {s['err']}")
         stats.update(st)
     return stats
+
+
+def pack_host_ns(dedup, kernels, ids, sts, cnt, fb, n: int = 1000) -> dict:
+    """Host ns per call of K11's wrapper and of its parts, over ``n`` calls
+    each at these shapes (perf_counter_ns; the launches are queued, the card
+    drained between parts): the checks of the four inputs and the output,
+    the output's allocation, the device test, the stream lookup, the
+    pointers, the ctypes call that launches the kernel, the whole wrapper
+    into a given output (as UnitRunner.dispatch calls it) and allocating
+    one, and torch.cat of the same planes, likewise."""
+    B, N = ids.shape
+    out = torch.empty((B, 2 * N + 2), dtype=torch.int32, device=ids.device)
+    fn, _err = kernels._fns["pack_out"]
+    idx = ids.device.index
+    ptrs = (ids.data_ptr(), sts.data_ptr(), cnt.data_ptr(), fb.data_ptr(),
+            out.data_ptr(), B, N)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    cols = [ids, sts, cnt[:, None], fb.to(torch.int32)[:, None]]
+    parts = {
+        "checks": lambda: dedup._check_pack(ids, sts, cnt, fb, out,
+                                            2 * N + 2),
+        "alloc": lambda: ids.new_empty((B, 2 * N + 2)),
+        "device": lambda: torch._C._cuda_getDevice() == idx,
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "pointers": lambda: (ids.data_ptr(), sts.data_ptr(), cnt.data_ptr(),
+                             fb.data_ptr(), out.data_ptr()),
+        "ctypes_call": lambda: fn(*ptrs, stream),
+        "wrapper": lambda: dedup.pack_out(ids, sts, cnt, fb, out=out),
+        "wrapper_alloc": lambda: dedup.pack_out(ids, sts, cnt, fb),
+        "torch_cat": lambda: torch.cat(cols, dim=1, out=out),
+        "torch_cat_alloc": lambda: torch.cat(cols, dim=1),
+    }
+    ns = {}
+    for name, f in parts.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            f()
+        ns[name] = (time.perf_counter_ns() - t0) / n
+        torch.cuda.synchronize()
+    return ns
 
 
 def dp_kernels(slabs, mesh) -> dict:
@@ -1866,7 +1972,7 @@ def main() -> int:
     # ------------------------------------------------------- 27. kernels-p
     stats.update(units_np_kernels(
         {"bpe_units_np": tok_ww, "unigram_units_np": tok_wu}, docs, bpe_ops,
-        uni_ops, dedup, dev))
+        uni_ops, dedup, kernels, dev))
     del tok_ww, tok_wu
 
     # --------------------------------------------------------- 28. main-dp

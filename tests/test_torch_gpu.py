@@ -5,9 +5,10 @@ region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
-takes a transition that the automaton does not have; K11 pack_out and K12
-shard_stats, and the routes of a window of 2,048 symbols on the card
-against the CPU.
+takes a transition that the automaton does not have; K11 pack_out (at
+widths 1 to 1,024, aligned or not) and K12 shard_stats, K2 on the seeded
+edge rows of testing.resolve_edge_rows in its three modes, and the routes
+of a window of 2,048 symbols on the card against the CPU.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
 present and skips there without one (the collected set never depends on the
@@ -603,6 +604,95 @@ def test_pack_out_kernel_matches_plain(width):
                    out=big[5 : B + 2])
     assert torch.equal(big[5 : B + 2], want[:B - 3])
     assert (big[:5] == -7).all() and (big[B + 2 :] == -7).all()
+
+
+@pytest.mark.parametrize("B", [1, 304])
+@pytest.mark.parametrize("width", [1, 2, 127, 128, 1024])
+def test_pack_out_kernel_at_every_width(width, B):
+    """K11's pair path (N even) and value path (N odd, or a plane that is
+    not 8-byte aligned) against the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(width * 1000 + B)
+    ids = torch.from_numpy(rng.integers(-5, 1 << 20, (B, width),
+                                        dtype=np.int32)).cuda()
+    st = torch.from_numpy(rng.integers(0, width, (B, width),
+                                       dtype=np.int32)).cuda()
+    cnt = torch.from_numpy(rng.integers(0, width + 1, B, dtype=np.int32)).cuda()
+    fb = torch.from_numpy(rng.random(B) < 0.3).cuda()
+    want = dedup._pack_out_plain(ids, st, cnt, fb)
+    n = kernels.launches["pack_out"]
+    assert torch.equal(dedup.pack_out(ids, st, cnt, fb), want)
+    odd = torch.empty(B * width + 1, dtype=torch.int32, device="cuda")
+    odd = odd[1:].view(B, width)  # 4 bytes past an 8-byte boundary
+    odd.copy_(ids)
+    assert torch.equal(dedup.pack_out(odd, st, cnt, fb), want)
+    assert kernels.launches["pack_out"] == n + 2
+
+
+def test_k2_and_k11_raise_on_tensors_they_do_not_take():
+    """No fallback on the card: a wrong dtype, a plane on another device or
+    a row past K2's limits raises, and nothing launches."""
+    _need_cuda()
+    ids = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    cnt = torch.zeros(4, dtype=torch.int32, device="cuda")
+    fb = torch.zeros(4, dtype=torch.bool, device="cuda")
+    n = kernels.launches["pack_out"]
+    with pytest.raises(ValueError, match="starts"):
+        dedup.pack_out(ids, ids.long(), cnt, fb)
+    with pytest.raises(ValueError, match="counts"):
+        dedup.pack_out(ids, ids, cnt.cpu(), fb)
+    with pytest.raises(ValueError, match="out"):
+        dedup.pack_out(ids, ids, cnt, fb, out=torch.empty(
+            (4, 17), dtype=torch.int32, device="cuda"))
+    assert kernels.launches["pack_out"] == n
+    t, spm = _k2_tables("plain")
+    N = bpe.RESOLVE_MAX_N * 2
+    m = torch.full((2, 1, N), -1, dtype=torch.int32, device="cuda")
+    x = torch.zeros((1, N), dtype=torch.int32, device="cuda")
+    ln = torch.full((1,), N, dtype=torch.int32, device="cuda")
+    so = torch.zeros((1, N), dtype=torch.bool, device="cuda")
+    n = kernels.launches["bpe_resolve"]
+    with pytest.raises(ValueError, match="N<="):
+        bpe.bpe_resolve(t, m, None, so, x, ln, spm, 0, 64)
+    with pytest.raises(ValueError, match="a_max<="):
+        bpe.bpe_resolve(t, m[:, :, :8].contiguous(), None, so[:, :8], x[:, :8],
+                        ln.clamp(max=8), spm, 0, bpe.RESOLVE_MAX_ARCS + 1)
+    assert kernels.launches["bpe_resolve"] == n
+
+
+def _k2_tables(mode: str):
+    """(tables, spm_iw) on the card in K2's plain, merge-priority and rank
+    modes."""
+    if mode == "rank":
+        tok = _spm_tok(False, "cuda", n_pairs=0)
+        return tok.tables, tok._spm_iw
+    algo = TokAlgo.BPE_OPT if mode == "plain" else TokAlgo.BPE_OPT_WITH_MERGES
+    tok = SpTokenizer(load_bytes(testing.gpt2_shaped_model_bytes(
+        2000, n_long=40, tok_algo=algo)), max_doc_symbols=128, device="cuda")
+    return tok.tables, tok._unit_runner().spm_iw
+
+
+@pytest.mark.parametrize("mode", ["plain", "priority", "rank"])
+def test_resolve_kernel_on_edge_rows(mode):
+    """K2 on testing.resolve_edge_rows: a one-segment row at a_max 4,096,
+    a flagged row whose a_max cut splits its segment, unknown runs at a
+    row's end, lengths below N, widths 1,024, 200 and 37."""
+    _need_cuda()
+    t, spm = _k2_tables(mode)
+    assert bpe.rank_mode(t) == (mode == "rank")
+    assert (t.prio2id is not None) == (mode == "priority")
+    for case in testing.resolve_edge_rows(spm):
+        m, so, x, ln = (torch.from_numpy(case[k]).cuda() for k in (
+            "m_pack", "slot_overflow", "x", "lengths"))
+        mr = torch.from_numpy(case["m_rank"]).cuda() if mode == "rank" \
+            else None
+        n = kernels.launches["bpe_resolve"]
+        got = bpe.bpe_resolve(t, m, mr, so, x, ln, spm, 3, case["a_max"])
+        assert kernels.launches["bpe_resolve"] == n + 1
+        want = bpe._resolve_plain(t, m, mr, so, x, ln, spm, 3, case["a_max"])
+        for name, a, b in zip(("ids", "starts", "ends", "counts",
+                               "fallback"), got, want):
+            assert torch.equal(a, b), (case["name"], name)
 
 
 @pytest.mark.parametrize("layout", ["rows", "wordpiece_slab"])
