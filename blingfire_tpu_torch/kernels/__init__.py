@@ -6,12 +6,12 @@ with ctypes.  :func:`build` starts one ``nvcc`` per source, and the
 ``g++`` of the host library and of the native runtime, all at once, so the
 first use pays the slowest single compile.  Libraries land in
 ``build/blingfire_tpu_torch/kernels/``, one per source, named by the source
-and a hash of it and the headers.  The Triton kernel K4 (``pack_triton.py``)
-is compiled by Triton at its first launch.
+and a hash of it and the headers.  Every kernel is CUDA: the port needs no
+Triton.
 
-Every launch goes through :func:`launch` (or :func:`note_launch` for the
-Triton kernel), which adds one to ``launches[name]``: a run can show that
-its main path went through each kernel.  A C entry point returns the
+Every launch goes through :func:`launch`, which adds one to
+``launches[name]``: a run can show that its main path went through each
+kernel.  A C entry point returns the
 ``cudaGetLastError()`` of its launch; a non-zero code raises.
 """
 
@@ -61,6 +61,8 @@ KERNELS = {
     "shard_stats": ("shard_stats.cu", "bf_shard_stats",
                     [_P, _I64, _P, _I64, _I64, _I, _P]),
     "pack_out": ("pack_out.cu", "bf_pack_out", [_P] * 5 + [_I, _I]),
+    "pack_out_compact": ("pack_out.cu", "bf_pack_out_compact",
+                         [_P] * 5 + [_I, _I, _I]),
 }
 # every kernel of each corpus path, with the route it takes
 PATHS = {
@@ -68,7 +70,7 @@ PATHS = {
         "scatter_trie": "cuda",
         "bpe_walk": "cuda",
         "bpe_resolve": "cuda",
-        "pack_out_compact": "triton",
+        "pack_out_compact": "cuda",
     },
     # models off the unit path (not chunk-safe), and long documents' chunks:
     # SpTokenizer's classic doc-row pass, in every table and rank mode
@@ -79,7 +81,7 @@ PATHS = {
     "unigram": {
         "unigram_walk": "cuda",
         "unigram_viterbi": "cuda",
-        "pack_out_compact": "triton",
+        "pack_out_compact": "cuda",
     },
     # the comb pass runs only for a sub-grammar too large for the dense table
     "wordpiece": {
@@ -165,10 +167,6 @@ class Reads:
 
 def reset_launches() -> None:
     launches.clear()
-
-
-def note_launch(name: str) -> None:
-    launches[name] += 1
 
 
 def nvcc() -> str:

@@ -26,8 +26,8 @@ __device__ __forceinline__ void df_add(float hi, float lo, float f, float& hi2,
     two_sum(s, e, hi2, lo2);
 }
 
-// a < b for df64 pairs
+// a < b for df64 pairs (no short circuit: a select, not a branch)
 __device__ __forceinline__ bool df_lt(float a_hi, float a_lo, float b_hi,
                                       float b_lo) {
-    return (a_hi < b_hi) || ((a_hi == b_hi) && (a_lo < b_lo));
+    return (a_hi < b_hi) | ((a_hi == b_hi) & (a_lo < b_lo));
 }

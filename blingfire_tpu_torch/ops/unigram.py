@@ -48,7 +48,14 @@ _DENSE_MAX_OW = (1 << 15) - 1
 _WIDE_OWNER_SENTINEL = (1 << 17) - 1  # empty-slot owner: matches no state
 
 MODE_DENSE, MODE_WIDE, MODE_COMB = 0, 1, 2
-VITERBI_MAX_N = 8192  # K6 keeps 17 bytes per position of a row in shared memory
+# K6's shared memory a row (kernels/csrc/unigram_viterbi.cu): 5 bytes a
+# position (a word and flags) beside a ring of four arc tiles of 16
+# positions (512 L bytes; 16,384 at L = 32), or beside a best ring of R > L
+# positions (8 R bytes) when L > 32, within a block's 232,448 bytes:
+# (232,448 - 16,384) / 5 = 43,212 positions, rounded down to a power of two
+VITERBI_SMEM = 232448
+VITERBI_MAX_N = 32768
+VITERBI_MAX_L = 4096  # a best ring of 8,192 positions beside 32,768
 
 
 @dataclass(frozen=True)
@@ -387,6 +394,20 @@ def _viterbi_plain(tables: UnigramDeviceTables, m_key, m_score, lengths,
     return out_ids, out_starts, out_ends, counts
 
 
+def viterbi_lane_group(L: int, N: int) -> int:
+    """The lanes of K6's row group at depth L and row width N, as its
+    launcher (bf_unigram_viterbi) picks them: the smallest power of two >= L,
+    doubled while a warp's rows would not fit in VITERBI_SMEM; 32 (one row a
+    warp, strided candidates) when L > 32."""
+    if L > 32:
+        return 32
+    g = 1 << (L - 1).bit_length()
+    stride = -(-(32 * 16 * L + 5 * N) // 16) * 16  # four 16-position tiles
+    while g < 32 and (32 // g) * stride > VITERBI_SMEM:
+        g *= 2
+    return g
+
+
 def unigram_viterbi(
     tables: UnigramDeviceTables,
     m_key: torch.Tensor,  # int32 (B, N, L) from unigram_walk
@@ -406,14 +427,16 @@ def unigram_viterbi(
     kernels.check(m_key, torch.int32, (B, N, L), "m_key")
     kernels.check(m_score, torch.float32, (B, N, L), "m_score")
     kernels.check(lengths, torch.int32, (B,), "lengths")
-    if not (1 <= L and N <= VITERBI_MAX_N):
-        raise ValueError(f"unigram_viterbi kernel takes L >= 1 and "
-                         f"N <= {VITERBI_MAX_N}; got N={N} L={L}")
+    if not (1 <= L <= VITERBI_MAX_L and N <= VITERBI_MAX_N):
+        raise ValueError(f"unigram_viterbi kernel takes 1 <= L <= "
+                         f"{VITERBI_MAX_L} and N <= {VITERBI_MAX_N}; got N={N} "
+                         f"L={L}")
     dev = m_key.device
-    out_ids = torch.empty((B, N), dtype=torch.int32, device=dev)
-    out_starts = torch.empty((B, N), dtype=torch.int32, device=dev)
-    out_ends = torch.empty((B, N), dtype=torch.int32, device=dev)
-    counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    # one allocation for the four outputs: the launch's host time is most
+    # of a short launch's time
+    buf = m_key.new_empty(3 * B * N + B)
+    out_ids, out_starts, out_ends = buf[: 3 * B * N].view(3, B, N)
+    counts = buf[3 * B * N :]
     if B == 0 or N == 0:
         return out_ids, out_starts, out_ends, counts
     kernels.launch(

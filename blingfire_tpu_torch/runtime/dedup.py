@@ -231,10 +231,10 @@ def _pack_out_compact_plain(ids, starts, counts, fb):
 
 def pack_out_compact(ids, starts, counts, fb, out=None):
     """(B, N+2) int32 rows: N lanes ``(id + 1) | (start << 21)``, then the
-    token count and the fallback flag.  K4 (kernels/pack_triton.py) on a
+    token count and the fallback flag.  K4 (kernels/csrc/pack_out.cu) on a
     CUDA tensor; the plain version on a CPU tensor."""
     return _pack(ids, starts, counts, fb, out, ids.shape[1] + 2,
-                 _pack_out_compact_plain, "pack_out_compact")
+                 _pack_out_compact_plain, "pack_out_compact", ID_SHIFT)
 
 
 def _check_pack(ids, starts, counts, fb, out, width: int) -> None:
@@ -263,8 +263,9 @@ def _check_pack(ids, starts, counts, fb, out, width: int) -> None:
             raise ValueError(f"{name} is on {t.device}, ids on {ids.device}")
 
 
-def _pack(ids, starts, counts, fb, out, width: int, plain, name: str):
-    """K4 or K11 (``name``) into ``out`` (B, width), or its plain version."""
+def _pack(ids, starts, counts, fb, out, width: int, plain, name: str, *extra):
+    """K4 or K11 (``name``, its trailing arguments ``extra``) into ``out``
+    (B, width), or its plain version."""
     if not kernels.on_card(ids):
         res = plain(ids, starts, counts, fb)
         if out is None:
@@ -277,17 +278,9 @@ def _pack(ids, starts, counts, fb, out, width: int, plain, name: str):
     _check_pack(ids, starts, counts, fb, out, width)
     if B == 0:
         return out
-    if name == "pack_out":
-        kernels.launch("pack_out", ids.device, ids.data_ptr(),
-                       starts.data_ptr(), counts.data_ptr(), fb.data_ptr(),
-                       out.data_ptr(), B, N)
-        return out
-    from ..kernels import pack_triton
-
-    with torch.cuda.device(ids.device):
-        pack_triton.launch(ids, starts, counts, fb.view(torch.uint8), out,
-                           ID_SHIFT)
-    kernels.note_launch(name)
+    kernels.launch(name, ids.device, ids.data_ptr(), starts.data_ptr(),
+                   counts.data_ptr(), fb.data_ptr(), out.data_ptr(), B, N,
+                   *extra)
     return out
 
 

@@ -517,6 +517,63 @@ def unigram_edge_rows():
     return blob, x, lengths
 
 
+# (row width N, walk cap lw) of unigram_lane_edge_rows: every N at least
+# once, and L = min(lw, LANE_MAX_LEN) in {1, 3, 8, 9, 15, 16, 17, 33, 40}
+# (the depths past 32 at the narrowest width past a tile: JAX's compile
+# time grows with both)
+LANE_MAX_LEN = 40
+LANE_EDGE_CASES = ((1, 1), (1, None), (31, 3), (31, 33), (31, None), (65, 9),
+                   (65, 15), (65, 17), (200, 8), (200, 16))
+
+
+def unigram_lane_edge_rows():
+    """(model image, {N: (x_iw int32 (R, N), lengths int32 (R,))}) of
+    hand-made rows for K6's lane groups, at the widths of LANE_EDGE_CASES
+    (none a multiple of K6's 16- or 32-position arc tiles but 1), on a tiny
+    unigram model whose longest piece, (ab)^20, has LANE_MAX_LEN = 40
+    symbols, past a warp.  Integer scores make exact ties between depths:
+    a, b, c, ab, abc, (abc)^3, (ab)^8 a and (ab)^20 tie their splits into
+    single symbols, c^33 ties 33 c's; bc loses to b + c, ca beats c + a.
+    q and u occur only inside qu, so a q with no u after it is unknown and
+    one before a u ends where every candidate is -FLT_MAX.  The rows hold
+    lengths 0, below N, N and past N, unknown runs (-1) across the tile
+    boundaries at 16 and 32, and seeded symbols past the length, which the
+    walk still reads."""
+    S, a, b, c, q, u = SPM, 0x61, 0x62, 0x63, 0x71, 0x75
+    ab, abc = (a, b), (a, b, c)
+    vocab = [((S,), -2.0), ((a,), -1.0), ((b,), -1.0), ((c,), -1.0),
+             (ab, -2.0), (abc, -3.0), ((b, c), -2.5), ((c, a), -1.5),
+             ((S, a), -3.0), (abc * 3, -9.0), (ab * 8 + (a,), -17.0),
+             ((c,) * 33, -33.0), (ab * 20, -40.0), ((q, u), -4.5)]
+    blob = compile_dict_model(DictModelSpec(entries=[
+        VocabEntry(ch, 3 + i, s) for i, (ch, s) in enumerate(vocab)]))
+    alphabet = sorted({v for ch, _s in vocab for v in ch})
+    S, a, b, c, q, u = (alphabet.index(v) for v in (S, a, b, c, q, u))
+    ab, abc = [a, b], [a, b, c]
+    rng = np.random.default_rng(11)
+    rows = {}
+    for N in sorted({n for n, _lw in LANE_EDGE_CASES}):
+        pats = [
+            ([S] + ab * 20 + [c] * 33 + abc * 3 + [b, c, a], N),
+            ([a, q, u, b] + [-1] * 14 + [c] * 8 + [-1] * 9 + [q, b], N),
+            ([S, a, b] + [-1] * 10 + ab * 8 + [a, -1, -1] + [q] * 20, N - 1),
+            ([c] * 40 + [q, u] + abc * 20, N // 2),
+            ([], 0),
+            ([S, a, b, q, u], 4),  # ends at q: every candidate -FLT_MAX
+            ([S, a, q, u], N + 5),  # past the row: nothing is emitted
+            ([-1] * N, N),
+            ((abc * 3 + ab * 8 + [a] + [c] * 33 + [q]) * 3, N),
+        ]
+        x = rng.integers(-1, len(alphabet), (len(pats), N)).astype(np.int32)
+        lengths = np.zeros(len(pats), np.int32)
+        for i, (r, n) in enumerate(pats):
+            r = r[:N]
+            x[i, : len(r)] = r
+            lengths[i] = n
+        rows[N] = (x, lengths)
+    return blob, rows
+
+
 CORPUS_WORDS = 20000  # distinct frequent words
 CORPUS_RARE = 50000  # rare words (3% of word draws)
 WORDS_PER_DOC = 60  # mean document length in words

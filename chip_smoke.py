@@ -18,7 +18,9 @@ Phases, each of which must pass (any failure exits non-zero):
               the card, on packed rows of all three row regions at the main
               path's shapes; integers must agree exactly (tolerance 0); K2's
               claim depth (ops/bpe.py::claim_segments) beside its arcs a
-              row; K3 and its library call timed in turns;
+              row; K3 and its library call timed in turns; K4's host time a
+              call by part (checks, allocation, device, stream, pointers,
+              ctypes call) over 1,000 calls at the first region's shape;
   6. model-u  a seeded xlnet-shaped unigram-LM vocabulary (32,000 entries)
               with its charmap; its automaton's shape and table mode;
   7. main-u   the unigram path, as phase 4, over the same corpus: K5, K6 and
@@ -28,6 +30,8 @@ Phases, each of which must pass (any failure exits non-zero):
               versions on the packed rows of all three regions of one
               uncached 4 MiB batch, in the dense, wide and comb table modes
               (forced through the port's module constants); tolerance 0;
+              K6's rows a launch, depth L, lane group G and ns a DP step
+              (events over the row width); K4's host time a call by part;
   9. model-w  a seeded bert-shaped WordPiece model (28,996 entries, [UNK] =
               100) compiled by the port's copy of the lex compiler; its
               automaton's size;
@@ -116,9 +120,10 @@ Phases, each of which must pass (any failure exits non-zero):
               NumPy unit path of one uncached 4 MiB batch at main-ww's window,
               for both models; K11 (into a given output, as the path calls
               it) against torch.cat(..., out=); tolerance 0;
-              K2's claim depth a launch; K11's host time a call by part
-              (checks, allocation, device, stream, pointers, ctypes call)
-              over 1,000 calls at the first launch's shape;
+              K2's claim depth a launch; K6's rows a launch, L, G and ns a
+              DP step; K11's host time a call by part (checks, allocation,
+              device, stream, pointers, ctypes call) over 1,000 calls at the
+              first launch's shape;
  28. main-dp  the data-parallel runners in an NCCL group of one process (one
               card; more ranks are not shown here): ShardedSpRunner.run and
               run_units of the gpt2- and xlnet-shaped models at 128 symbols
@@ -129,6 +134,11 @@ Phases, each of which must pass (any failure exits non-zero):
               .dispatch's; K12 must launch;
  29. kernels-dp K12 shard_stats against its plain version on main-dp's
               slabs (the WordPiece ones strided); tolerance 0.
+The kernels, every one CUDA (kernels/csrc/, one nvcc a source), each
+launched through kernels.launch: K1 bpe_walk, K2 bpe_resolve, K3
+scatter_trie, K4 pack_out_compact, K5 unigram_walk, K6 unigram_viterbi, K7
+wp_subword_dense, K8 wp_subword_comb, K9 lexer_pass, K10 hyph_segment, K11
+pack_out, K12 shard_stats.
 Fallback documents of every path go to the native runtime; a run fails if
 one reaches the scalar oracle (Counters.oracle_docs).  Times per launch come
 from CUDA events after warm-up.  Each kernel is
@@ -180,7 +190,7 @@ SOURCES = {
     "bpe_resolve": ("blingfire_tpu_torch/kernels/csrc/bpe_resolve.cu",
                     {p: "blingfire_tpu/ops/bpe.py:340"
                      for p in ("bpe", "bpe_classic", "bpe_units_np")}),
-    "pack_out_compact": ("blingfire_tpu_torch/kernels/pack_triton.py",
+    "pack_out_compact": ("blingfire_tpu_torch/kernels/csrc/pack_out.cu",
                          {"bpe": "blingfire_tpu/runtime/dedup.py:218",
                           "unigram": "blingfire_tpu/runtime/dedup.py:218"}),
     "unigram_walk": ("blingfire_tpu_torch/kernels/csrc/unigram_walk.cu",
@@ -208,13 +218,21 @@ WP_UNK = 100  # bert's [UNK]
 # the kernels the WordPiece main path launches (K8 runs only when the dense
 # table is declined: phase main-wc)
 WP_MAIN = ("scatter_trie", "wp_subword_dense")
+# the kernels' numbers, K1..K12
+K_IDS = {"bpe_walk": "K1", "bpe_resolve": "K2", "scatter_trie": "K3",
+         "pack_out_compact": "K4", "unigram_walk": "K5",
+         "unigram_viterbi": "K6", "wp_subword_dense": "K7",
+         "wp_subword_comb": "K8", "lexer_pass": "K9", "hyph_segment": "K10",
+         "pack_out": "K11", "shard_stats": "K12"}
 # profiler kernel names of each wrapper
 KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "bpe_resolve": ("bpe_resolve_kernel",),
                 "scatter_trie": ("fill_kernel", "scatter_kernel"),
-                "pack_out_compact": ("_pack_kernel",),
+                "pack_out_compact": ("pack_compact_pair_kernel",
+                                     "pack_compact_scalar_kernel"),
                 "unigram_walk": ("unigram_walk_kernel",),
-                "unigram_viterbi": ("unigram_viterbi_kernel",),
+                "unigram_viterbi": ("unigram_viterbi_kernel",
+                                    "unigram_viterbi_wide_kernel"),
                 "wp_subword_dense": ("wp_subword_dense_kernel",),
                 "wp_subword_comb": ("wp_subword_comb_kernel",),
                 "lexer_pass": ("lexer_pass_kernel",),
@@ -465,6 +483,9 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         ids_k, st_k, _e, cnt_k, fb_k = r_k
         pack_vs_plain(stats[("pack_out_compact", "bpe")], dedup, ids_k, st_k,
                       cnt_k, fb_k)
+        if x is regions[0][0]:
+            host_ns_log("[kernels]", "pack_out_compact", dedup, ids_k, st_k,
+                        cnt_k, fb_k)
         per = {k[0]: round(stats[k]["ms"] - before[k], 5) for k in stats
                if k[0] != "scatter_trie"}
         log(f"[kernels] region rows={B} lw={lw} bounded={bounded}: walk, "
@@ -554,7 +575,9 @@ def uni_pair_vs_plain(stats, path: str, uni_ops, tables, x, ln, lw_eff,
                       reps=(50, 5, 2)):
     """One K5 and one K6 launch (on K5's output) against their plain
     versions on rows ``x``, as :func:`bpe_pair_vs_plain`.  Returns (K6's
-    output, the walk's reads, K5 ms, K6 ms)."""
+    output, the walk's reads, K5 ms, K6 ms, K6's shape: a log fragment with
+    its rows a launch, depth L, lane group G and ns a DP step, the events
+    over the row width)."""
     B, N = x.shape
     L = uni_ops.walk_depth(tables, lw_eff)
     mk, ms = uni_ops.unigram_walk(tables, x, ln, lw=lw_eff)
@@ -584,7 +607,9 @@ def uni_pair_vs_plain(stats, path: str, uni_ops, tables, x, ln, lw_eff,
     n_pos = int(ln.clamp(0, N).sum())
     s["bytes"] += B * N * L * 8 + B * 4 + 3 * B * N * 4 + B * 4 + 4 * n_tok
     s["ops"] += n_pos * (L + 1) * DF64_OPS
-    return r_k, r, k_ms, v_ms
+    shape = (f"K6 {B} rows of {N}, L={L} G={uni_ops.viterbi_lane_group(L, N)}"
+             f", {v_ms * 1e6 / N:.1f} ns a DP step")
+    return r_k, r, k_ms, v_ms, shape
 
 
 def scatter_vs_plain(s, bpe_ops, ti, tv, size: int, built, dev) -> None:
@@ -655,8 +680,8 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
         for x, ln, lw, bounded in regions:
             B, N = x.shape
             lw_eff = lw if bounded else None
-            r_k, r, k_ms, v_ms = uni_pair_vs_plain(stats, "unigram", uni_ops,
-                                                   tables, x, ln, lw_eff)
+            r_k, r, k_ms, v_ms, shape = uni_pair_vs_plain(
+                stats, "unigram", uni_ops, tables, x, ln, lw_eff)
             # K4 on the kernel's output
             pack_vs_plain(stats[("pack_out_compact", "unigram")], dedup,
                           r_k[0], r_k[1], r_k[3], torch.zeros(
@@ -666,7 +691,11 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
                 f"walk, viterbi and pack equal their plain versions; ms per "
                 f"launch walk {k_ms:.5f} viterbi {v_ms:.5f}; live lane-steps "
                 f"{r.steps}, table bytes read {r.table_bytes()}, tokens "
-                f"{int(r_k[3].sum())}")
+                f"{int(r_k[3].sum())}; {shape}")
+            if mode == "dense" and x is regions[0][0]:
+                host_ns_log("[kernels-u]", "pack_out_compact", dedup, r_k[0],
+                            r_k[1], r_k[3], torch.zeros(
+                                B, dtype=torch.bool, device=dev))
 
         def once():
             for (x, ln, lw, bounded), fb in zip(regions, fbs):
@@ -1227,8 +1256,7 @@ def run_dp(mesh, toks, want, hyb, sub, testing, dedup, native, dev):
     return slabs
 
 
-def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, kernels,
-                     dev) -> dict:
+def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
     """Phase 27: K11 against its plain version (and the segment kernels
     whose output it packs: K1 and K2, or K5 and K6) on every launch of the
     NumPy unit path of one uncached CMP_BYTES batch, for each tokenizer of
@@ -1260,10 +1288,11 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, kernels,
                 fb = r_k[4]
                 log(f"[kernels-p] {path}: {B} rows of {xd.shape[1]}: {claim}")
             else:
-                r_k, _r, k_ms, v_ms = uni_pair_vs_plain(
+                r_k, _r, k_ms, v_ms, shape = uni_pair_vs_plain(
                     st, path, uni_ops, tok.tables, xd, ld, None,
                     reps=(20, 2, 1))
                 fb = torch.zeros(B, dtype=torch.bool, device=dev)
+                log(f"[kernels-p] {path}: {shape}")
             ids, sts, cnt = r_k[0], r_k[1], r_k[3]
             packs.append((ids, sts, cnt, fb))
             N = ids.shape[1]
@@ -1297,10 +1326,8 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, kernels,
                 f"{k_ms:.5f} {seg[1]} {v_ms:.5f} pack_out {p_ms:.5f}; "
                 f"fallback rows {int(fb.sum())}")
             if len(packs) == 1:
-                ns = pack_host_ns(dedup, kernels, ids, sts, cnt, fb)
-                log(f"[kernels-p] {path}: K11's host ns a call at {B} rows of "
-                    f"{N} (1,000 calls a part): "
-                    f"{ {k: round(v) for k, v in ns.items()} }")
+                host_ns_log(f"[kernels-p] {path}:", "pack_out", dedup, ids,
+                            sts, cnt, fb)
 
         def once():
             for (xd, ld), (ids, sts, cnt, fb) in zip(launches, packs):
@@ -1318,44 +1345,64 @@ def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, kernels,
     return stats
 
 
-def pack_host_ns(dedup, kernels, ids, sts, cnt, fb, n: int = 1000) -> dict:
-    """Host ns per call of K11's wrapper and of its parts, over ``n`` calls
-    each at these shapes (perf_counter_ns; the launches are queued, the card
+def host_ns_log(tag: str, name: str, dedup, ids, sts, cnt, fb) -> None:
+    """Log :func:`pack_host_ns` after ``tag`` (the phase's log prefix)."""
+    from blingfire_tpu_torch import kernels
+
+    B, N = ids.shape
+    ns = pack_host_ns(name, dedup, kernels, ids, sts, cnt, fb)
+    log(f"{tag} {K_IDS[name]} {name}'s host ns a call at {B} rows of {N} "
+        f"(1,000 calls a part): { {k: round(v) for k, v in ns.items()} }")
+
+
+def pack_host_ns(name: str, dedup, kernels, ids, sts, cnt, fb,
+                 n: int = 1000) -> dict:
+    """Host ns per call of K11's (``name`` "pack_out") or K4's
+    ("pack_out_compact") wrapper and of its parts, over ``n`` calls each at
+    these shapes (perf_counter_ns; the launches are queued, the card
     drained between parts): the checks of the four inputs and the output,
     the output's allocation, the device test, the stream lookup, the
     pointers, the ctypes call that launches the kernel, the whole wrapper
-    into a given output (as UnitRunner.dispatch calls it) and allocating
-    one, and torch.cat of the same planes, likewise."""
+    into a given output (as the unit paths call it) and allocating one;
+    beside K11, torch.cat of the same planes, likewise; beside K4, its
+    plain version."""
     B, N = ids.shape
-    out = torch.empty((B, 2 * N + 2), dtype=torch.int32, device=ids.device)
-    fn, _err = kernels._fns["pack_out"]
+    k11 = name == "pack_out"
+    width = 2 * N + 2 if k11 else N + 2
+    extra = () if k11 else (dedup.ID_SHIFT,)
+    wrap = dedup.pack_out if k11 else dedup.pack_out_compact
+    out = torch.empty((B, width), dtype=torch.int32, device=ids.device)
+    fn, _err = kernels._fns[name]
     idx = ids.device.index
     ptrs = (ids.data_ptr(), sts.data_ptr(), cnt.data_ptr(), fb.data_ptr(),
-            out.data_ptr(), B, N)
+            out.data_ptr(), B, N) + extra
     stream = torch._C._cuda_getCurrentRawStream(idx)
-    cols = [ids, sts, cnt[:, None], fb.to(torch.int32)[:, None]]
     parts = {
-        "checks": lambda: dedup._check_pack(ids, sts, cnt, fb, out,
-                                            2 * N + 2),
-        "alloc": lambda: ids.new_empty((B, 2 * N + 2)),
+        "checks": lambda: dedup._check_pack(ids, sts, cnt, fb, out, width),
+        "alloc": lambda: ids.new_empty((B, width)),
         "device": lambda: torch._C._cuda_getDevice() == idx,
         "stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
         "pointers": lambda: (ids.data_ptr(), sts.data_ptr(), cnt.data_ptr(),
                              fb.data_ptr(), out.data_ptr()),
         "ctypes_call": lambda: fn(*ptrs, stream),
-        "wrapper": lambda: dedup.pack_out(ids, sts, cnt, fb, out=out),
-        "wrapper_alloc": lambda: dedup.pack_out(ids, sts, cnt, fb),
-        "torch_cat": lambda: torch.cat(cols, dim=1, out=out),
-        "torch_cat_alloc": lambda: torch.cat(cols, dim=1),
+        "wrapper": lambda: wrap(ids, sts, cnt, fb, out=out),
+        "wrapper_alloc": lambda: wrap(ids, sts, cnt, fb),
     }
+    if k11:
+        cols = [ids, sts, cnt[:, None], fb.to(torch.int32)[:, None]]
+        parts["torch_cat"] = lambda: torch.cat(cols, dim=1, out=out)
+        parts["torch_cat_alloc"] = lambda: torch.cat(cols, dim=1)
+    else:
+        parts["plain"] = lambda: dedup._pack_out_compact_plain(ids, sts, cnt,
+                                                               fb)
     ns = {}
-    for name, f in parts.items():
+    for part, f in parts.items():
         f()
         torch.cuda.synchronize()
         t0 = time.perf_counter_ns()
         for _ in range(n):
             f()
-        ns[name] = (time.perf_counter_ns() - t0) / n
+        ns[part] = (time.perf_counter_ns() - t0) / n
         torch.cuda.synchronize()
     return ns
 
@@ -1438,7 +1485,8 @@ def kernel_rows(stats, path_runs, kernels) -> list[dict]:
         tot = {k: sum(s[k] for (n, _p), s in stats.items() if n == name)
                for k in ("bytes", "ops")}
         bound, bound_by = bound_of(tot)
-        row = {"name": name, "route": route, "source": SOURCES[name][0],
+        row = {"name": name, "kernel": K_IDS[name], "route": route,
+               "source": SOURCES[name][0],
                "replaces": per[0]["replaces"]}
         row.update({k: sum_or_none(v[k] for v in per) for k in (
             "launches", "ms", "plain_ms", "library_ms", "device_ms")})
@@ -1972,7 +2020,7 @@ def main() -> int:
     # ------------------------------------------------------- 27. kernels-p
     stats.update(units_np_kernels(
         {"bpe_units_np": tok_ww, "unigram_units_np": tok_wu}, docs, bpe_ops,
-        uni_ops, dedup, kernels, dev))
+        uni_ops, dedup, dev))
     del tok_ww, tok_wu
 
     # --------------------------------------------------------- 28. main-dp

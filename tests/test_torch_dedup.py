@@ -1,5 +1,6 @@
 """The port's NumPy unit path (blingfire_tpu_torch/runtime/dedup.py:
-split_units, _dedup_rows, pack_units, pack_out, UnitRunner.dispatch /
+split_units, _dedup_rows, pack_units, pack_out, and the unit path's
+pack_out_compact, UnitRunner.dispatch /
 collect / encode) against the JAX package's, and SpTokenizer at a window of
 2,048 symbols, where a chunk-safe model takes that path, against JAX's same
 calls and the native runtime.  Integers compare exactly (tolerance 0)."""
@@ -96,6 +97,32 @@ def test_plain_pack_out_matches_jax():
     dedup.pack_out(*(torch.from_numpy(a) for a in (ids, st, cnt, fb)),
                    out=out)
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("B", [0, 1, 3])
+@pytest.mark.parametrize("width", [1, 2, 7, 128])
+def test_plain_pack_out_compact_matches_jax(width, B):
+    """K4's plain version against JAX's pack_out_compact (dedup.py:217-226)
+    at odd and even widths: lanes (id + 1) | (start << 21) with negative
+    starts and starts up to 1,023, whose shift reaches bit 31."""
+    rng = np.random.default_rng(width * 10 + B)
+    ids = rng.integers(-5, 1 << 20, (B, width), dtype=np.int32)
+    st = rng.integers(-3, 1024, (B, width), dtype=np.int32)
+    if B:
+        st[0, 0] = 1023
+        st[-1, -1] = -1
+    cnt = rng.integers(0, width + 1, B, dtype=np.int32)
+    fb = rng.random(B) < 0.5
+    args = [torch.from_numpy(a) for a in (ids, st, cnt, fb)]
+    got = dedup.pack_out_compact(*args)
+    want = np.asarray(jax_dedup._helpers()[2](ids, st, cnt, fb))
+    assert got.dtype == torch.int32 and got.shape == (B, width + 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if B:
+        assert (want[:, :width] < 0).any(), "no lane with bit 31 set"
+    out = torch.full((B, width + 2), -7, dtype=torch.int32)
+    assert dedup.pack_out_compact(*args, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
 
 
 def _fresh(fn):

@@ -1,7 +1,10 @@
 """The port's kernels against their plain versions on the card: the four of
 the byte-BPE path, K1 and K2 in the comb and rank modes of the classic
 doc-row path (and that path against the CPU), K5 unigram_walk and K6 unigram_viterbi in every row
-region and table mode, the WordPiece pass (K7 dense, K8 comb, K3 on the
+region and table mode, K6 also on testing.unigram_lane_edge_rows (every
+lane-group shape, L past a warp) and on random arcs at the widths where
+its launcher widens a group, K4 pack_out_compact at widths 1 to 1,024
+(aligned or not), the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
@@ -184,6 +187,50 @@ def test_unigram_kernels_on_edge_rows(monkeypatch, mode):
     for lw in (None, 2):
         _uni_kernels_match_plain(t, torch.from_numpy(x).cuda(),
                                  torch.from_numpy(ln).cuda(), lw, 7)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_unigram_kernels_on_lane_edge_rows(monkeypatch, mode):
+    """K5 and K6 on testing.unigram_lane_edge_rows: L from 1 to 40 (the
+    strided kernel past 32), widths 1, 31, 65 and 200 (16-byte and 4-byte
+    arc copies), lengths 0, below N, N and past N, ties between depths."""
+    _need_cuda()
+    blob, rows = testing.unigram_lane_edge_rows()
+    _force_mode(monkeypatch, mode)
+    t = _uni_tables(blob, testing.LANE_MAX_LEN)
+    for N, lw in testing.LANE_EDGE_CASES:
+        x, ln = rows[N]
+        _uni_kernels_match_plain(t, torch.from_numpy(x).cuda(),
+                                 torch.from_numpy(ln).cuda(), lw, 7)
+
+
+@pytest.mark.parametrize("B,N,L", [(300, 1024, 15), (300, 1024, 8),
+                                   (70, 8000, 1), (40, 8000, 3),
+                                   (9, 3000, 34)])
+def test_unigram_viterbi_kernel_on_random_arcs(B, N, L):
+    """K6 against its plain version on seeded random arcs (about one start
+    in five without a match, scores that rarely tie): the main path's
+    1,024-wide rows, rows wide enough that the launcher widens the group
+    (L = 1 and 3 at N = 8,000), and the strided kernel at L = 34."""
+    _need_cuda()
+    blob, _rows = testing.unigram_lane_edge_rows()
+    t = _uni_tables(blob, testing.LANE_MAX_LEN)
+    nkeys = t.ids_tab.numel()
+    rng = np.random.default_rng(B * N + L)
+    key = rng.integers(0, nkeys, (B, N, L)).astype(np.int32)
+    key[rng.random((B, N, L)) < 0.3] = -1
+    key[rng.random((B, N)) < 0.2] = -1
+    score = np.where(key >= 0, -rng.random((B, N, L)) * 20,
+                     np.finfo(np.float32).min).astype(np.float32)
+    ln = rng.integers(0, N + 3, B).astype(np.int32)
+    ln[:3] = (N, 0, N + 1)
+    mk, ms, lnd = (torch.from_numpy(a).cuda() for a in (key, score, ln))
+    n = kernels.launches["unigram_viterbi"]
+    got = unigram.unigram_viterbi(t, mk, ms, lnd, 5)
+    assert kernels.launches["unigram_viterbi"] == n + 1
+    want = unigram._viterbi_plain(t, mk, ms, lnd, 5)
+    for name, a, b in zip(("ids", "starts", "ends", "counts"), got, want):
+        assert torch.equal(a, b), name
 
 
 def test_unigram_encode_corpus_flat_on_the_card_matches_cpu():
@@ -627,6 +674,35 @@ def test_pack_out_kernel_at_every_width(width, B):
     odd.copy_(ids)
     assert torch.equal(dedup.pack_out(odd, st, cnt, fb), want)
     assert kernels.launches["pack_out"] == n + 2
+
+
+@pytest.mark.parametrize("B", [1, 304])
+@pytest.mark.parametrize("width", [1, 2, 127, 128, 1024])
+def test_pack_out_compact_kernel_at_every_width(width, B):
+    """K4's pair path (N even) and value path (N odd, or a plane that is
+    not 8-byte aligned) against the plain version, allocating and into a
+    slice of a larger output; starts from -3 to 1,023 (bit 31)."""
+    _need_cuda()
+    rng = np.random.default_rng(width * 1000 + B + 7)
+    ids = torch.from_numpy(rng.integers(-5, 1 << 20, (B, width),
+                                        dtype=np.int32)).cuda()
+    st = torch.from_numpy(rng.integers(-3, 1024, (B, width),
+                                       dtype=np.int32)).cuda()
+    cnt = torch.from_numpy(rng.integers(0, width + 1, B, dtype=np.int32)).cuda()
+    fb = torch.from_numpy(rng.random(B) < 0.3).cuda()
+    want = dedup._pack_out_compact_plain(ids, st, cnt, fb)
+    n = kernels.launches["pack_out_compact"]
+    assert torch.equal(dedup.pack_out_compact(ids, st, cnt, fb), want)
+    big = torch.full((B + 4, width + 2), -7, dtype=torch.int32,
+                     device="cuda")
+    dedup.pack_out_compact(ids, st, cnt, fb, out=big[2 : B + 2])
+    assert torch.equal(big[2 : B + 2], want)
+    assert (big[:2] == -7).all() and (big[B + 2 :] == -7).all()
+    odd = torch.empty(B * width + 1, dtype=torch.int32, device="cuda")
+    odd = odd[1:].view(B, width)  # 4 bytes past an 8-byte boundary
+    odd.copy_(ids)
+    assert torch.equal(dedup.pack_out_compact(odd, st, cnt, fb), want)
+    assert kernels.launches["pack_out_compact"] == n + 3
 
 
 def test_k2_and_k11_raise_on_tensors_they_do_not_take():
