@@ -53,8 +53,8 @@ KERNELS = {
                         [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                          _I, _I, _I, _I, _I, _I, _P]),
     "lexer_pass": ("lexer_pass.cu", "bf_lexer_pass",
-                   [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
-                    _P, _I, _I, _P]),
+                   [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
+                    _P]),
     "hyph_segment": ("hyph_segment.cu", "bf_hyph_segment",
                      [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                       _P, _I, _I, _P]),

@@ -28,6 +28,13 @@
 // x), reads the tables through the read-only path (__ldg), and stops
 // gathering once a lane's state is dead.  Every gather index is clamped
 // explicitly, as XLA clamps its gathers: CUDA would read out of bounds.
+//
+// In trie mode a step is one dependent gather.  Measured on the H100
+// (kernels/phase_split.py), a step costs about 0.2-0.33 us of device
+// time beyond its m_pack plane's write: an L2-latency chain (the trie's
+// touched lines stay in L2 from launch to launch), not a DRAM one, so the
+// dense trie stays.  The symbols ride a window loaded a step ahead (one
+// load a step, off the chain, where there were two on it).
 
 #include "common.cuh"
 
@@ -51,11 +58,15 @@ __global__ void bpe_walk_kernel(
     const int b = (int)(i / N), p = (int)(i % N);
     const int32_t* xr = x + (int64_t)b * N;
     const int len = lengths[b];
-    int32_t state = (p < len && xr[p] >= 0) ? (COMB ? 0 : root) : -1;
+    // a window of the row's symbols, c = x[q] and c1 = x[q + 1], loaded a
+    // step ahead: no symbol load on the chain of gathers
+    int32_t c = xr[p];
+    int32_t c1 = p + 1 < N ? __ldg(xr + p + 1) : -1;
+    int32_t state = (p < len && c >= 0) ? (COMB ? 0 : root) : -1;
     int32_t sum_ow = 0;
     for (int d = 0; d < LW; ++d) {
         const int q = p + d;
-        const int32_t c = q < N ? xr[q] : -1;
+        const int32_t c2 = q + 2 < N ? __ldg(xr + q + 2) : -1;
         int32_t ns = -1, id = -1;
         float rank = 0.0f;
         if (state >= 0 && c >= 0) {
@@ -80,12 +91,14 @@ __global__ void bpe_walk_kernel(
                 }
             }
         }
-        const int q1 = q + 1;
-        const int nxt_spm = (q1 >= len || (q1 < N && xr[q1] == spm_iw)) ? 1 : 0;
+        // spm_iw >= 0 (the wrapper checks it), so padding (-1) is never ▁
+        const int nxt_spm = (q + 1 >= len || c1 == spm_iw) ? 1 : 0;
         const int64_t o = ((int64_t)d * B + b) * N + p;
         m_pack[o] = id >= 0 ? (id | (nxt_spm << 27)) : -1;
         if (RANK) m_rank[o] = id >= 0 ? rank : 0.0f;
         state = ns;
+        c = c1;
+        c1 = c2;
     }
     slot_overflow[i] = (overflow && state >= 0) ? 1 : 0;
 }

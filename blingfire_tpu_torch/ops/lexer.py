@@ -62,6 +62,10 @@ class LexerDeviceTables:
     nxt: torch.Tensor  # int32[slots]
     final: torch.Tensor  # bool[n_states]
     moore_ow: torch.Tensor  # int32[n_states]
+    # K9's packed records: (base, final, moore_ow, 0) a state, one 16-byte
+    # load; (owner, nxt) a slot, one 8-byte load
+    state_rec: torch.Tensor  # int32[n_states, 4]
+    slot_rec: torch.Tensor  # int32[slots, 2]
     act_right: torch.Tensor  # int32[n_acts] RightCx
     act_tag: torch.Tensor  # int32[n_acts]
     act_fn: torch.Tensor  # int32[n_acts] (-1 = no function call)
@@ -104,17 +108,26 @@ def make_device_tables(table: CombTable, moore_ow, acts: dict,
         if fns:
             act_fn[k] = fns[0]
     any_dense = int(table.sym2iw[0]) if len(table.sym2iw) > 0 else -1
+    base = np.asarray(table.base, np.int32)
+    state_rec = np.zeros((len(base), 4), np.int32)
+    state_rec[:, 0] = base
+    state_rec[:, 1] = np.asarray(table.final, bool)
+    state_rec[:, 2] = np.asarray(moore_ow, np.int32)
+    slot_rec = np.stack([np.asarray(table.owner, np.int32),
+                         np.asarray(table.nxt, np.int32)], axis=1)
 
     def dev(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
                                                            dtype=dtype)
 
     return LexerDeviceTables(
-        base=dev(table.base),
+        base=dev(base),
         owner=dev(table.owner),
         nxt=dev(table.nxt),
         final=dev(table.final, torch.bool),
         moore_ow=dev(moore_ow),
+        state_rec=dev(state_rec),
+        slot_rec=dev(slot_rec),
         act_right=dev(act_right),
         act_tag=dev(act_tag),
         act_fn=dev(act_fn),
@@ -323,13 +336,9 @@ def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
     has = fin_pos >= 0
     skip_to = torch.where(has, torch.maximum(from_orig, fpos_orig - right),
                           from_orig)
-    # the sequential visited scan (see the note in lexer.py:298-302)
-    vis = torch.zeros((B, M), dtype=torch.bool, device=x.device)
-    nv = torch.zeros(B, dtype=torch.int32, device=x.device)
-    for q in range(M):
-        v = nv == q
-        vis[:, q] = v
-        nv = torch.where(v, skip_to[:, q] + 2, nv)
+    # the visited scan, sequential in the JAX package (lexer.py:298-302)
+    vis = visited_chain(skip_to, torch.full((B,), M, dtype=torch.int32,
+                                            device=x.device))
     emit = vis & valid & has & ((tag != 0) | (fn >= 0))
     lane = ((tag + 1) | (from2 << 17) | (to2 << 24)
             | ((fn >= 0).to(torch.int32) << 31))
@@ -343,10 +352,44 @@ def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
                      dim=1)
 
 
-def _lexer_pass_plain(tables: LexerDeviceTables, x, init, ext_len,
+def visited_chain(skip: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """bool (B, M): the starts the reference's sequential FromPos scan
+    (FALexTools_t.h:229-397) visits below ``end`` (int (B,)), the chain
+    ``nv = 0, skip[0] + 2, skip[nv] + 2, ...`` of each row.
+
+    ``f(p) = skip[p] + 2`` moves forward (``skip[p] >= p - 1``), so the
+    chain is found by pointer doubling: in round k every marked start marks
+    ``J_k(p)``, and ``J_{k+1} = J_k(J_k)``, saturating at the sentinel
+    lane M (every jump to ``end`` or past it).  After round k the starts
+    ``f^0(0) .. f^(2^(k+1) - 1)(0)`` are marked, and a jump from a chain
+    start lands on the chain, so after ``ceil(log2 M)`` rounds the marks
+    are exactly the chain below ``end``; the rounds stop once every row's
+    ``J_k(0)`` is the sentinel (``f^(2^k)(0)`` past ``end``: the marks
+    hold the whole chain).  K9 runs the same rounds in shared memory."""
+    B, M = skip.shape
+    dev = skip.device
+    pos = torch.arange(M + 1, device=dev)
+    end = end.to(torch.int64).clamp(0, M)[:, None]
+    jump = torch.cat([skip.to(torch.int64) + 2,
+                      torch.full((B, 1), M, dtype=torch.int64, device=dev)],
+                     dim=1)
+    jump = torch.where((pos < end) & (jump < end), jump, M)
+    mark = torch.zeros((B, M + 1), dtype=torch.bool, device=dev)
+    mark[:, 0] = end[:, 0] > 0
+    for _ in range((M - 1).bit_length()):
+        mark.scatter_(1, torch.where(mark, jump, M), True)
+        jump = jump.gather(1, jump)
+        if bool((jump[:, 0] == M).all()):  # every chain whole: J_k(0) done
+            break
+    return mark[:, :M] & (pos[:M] < end)
+
+
+def _lexer_scan_plain(tables: LexerDeviceTables, x, init, ext_len,
                       reads=None):
-    """The five (B, M) planes of lexer.py::lexer_pass (lexer.py:93-176):
-    (visited bool, tag, from2, to2, fn int32).
+    """The walk and the action gathers of lexer.py::lexer_pass
+    (lexer.py:93-176): (valid & has, skip, tag, from2, to2, fn), each
+    (B, M); ``skip`` is each start's FromPos skip target, whose chain
+    :func:`visited_chain` follows.
 
     WALK: every start before the row's R anchor walks from the row's initial
     state, at most max_token_length + 1 steps; a step is the exact lookup,
@@ -361,7 +404,7 @@ def _lexer_pass_plain(tables: LexerDeviceTables, x, init, ext_len,
     (runtime/lexer.py:140-168), where JAX's walk tests it at every step
     (lexer.py:134).  ROADMAP.md section C has these faults.  The deepest final gives the position and
     Moore Ow.  SCAN: the action gathers, clamped at both ends as XLA clamps
-    them, and the sequential FromPos skip scan.  The JAX while loop runs
+    them, and each start's skip target.  The JAX while loop runs
     until every lane of the batch is dead; a dead lane stays dead, so
     stopping there changes nothing.  ``reads`` as in
     :func:`_walk_dense_plain`."""
@@ -417,13 +460,19 @@ def _lexer_pass_plain(tables: LexerDeviceTables, x, init, ext_len,
     to2 = torch.minimum(reach.clamp(min=0), hi)
     has = fin_pos >= 0
     skip = torch.where(has, torch.maximum(from_orig, reach), from_orig)
-    vis = torch.zeros((B, M), dtype=torch.bool, device=dev)
-    nv = torch.zeros(B, dtype=i32, device=dev)
-    for q in range(M):
-        v = nv == q
-        vis[:, q] = v
-        nv = torch.where(v, skip[:, q] + 2, nv)
-    return vis & valid & has, tag, from2, to2, fn
+    return valid & has, skip, tag, from2, to2, fn
+
+
+def _lexer_pass_plain(tables: LexerDeviceTables, x, init, ext_len,
+                      reads=None):
+    """The five (B, M) planes of lexer.py::lexer_pass (lexer.py:93-176):
+    (visited bool, tag, from2, to2, fn int32): :func:`_lexer_scan_plain`,
+    then the FromPos chain up to each row's R anchor
+    (:func:`visited_chain`; no lane at or past it is valid).  ``reads`` as
+    in :func:`_walk_dense_plain`."""
+    cand, skip, tag, from2, to2, fn = _lexer_scan_plain(tables, x, init,
+                                                        ext_len, reads)
+    return visited_chain(skip, ext_len - 1) & cand, tag, from2, to2, fn
 
 
 def pack5(visited, tag, from2, to2, fn) -> torch.Tensor:
@@ -566,9 +615,8 @@ def lexer_pass_packed(tables: LexerDeviceTables, x_ext: torch.Tensor,
     if B:
         kernels.launch(
             "lexer_pass", x_ext.device,
-            tables.base.data_ptr(), tables.owner.data_ptr(),
-            tables.nxt.data_ptr(), tables.final.data_ptr(),
-            tables.moore_ow.data_ptr(), tables.base.numel(), tables.n_slots,
+            tables.state_rec.data_ptr(), tables.slot_rec.data_ptr(),
+            tables.state_rec.shape[0], tables.slot_rec.shape[0],
             tables.act_right.data_ptr(), tables.act_tag.data_ptr(),
             tables.act_fn.data_ptr(), tables.act_right.numel(),
             tables.any_iw, tables.max_token_length, x_ext.data_ptr(),

@@ -874,6 +874,46 @@ def lexer_edge_rows(lex, width: int = 64):
             np.array(lens, np.int32), raws)
 
 
+def lexer_dead_end_state(lex) -> int:
+    """The lowest state of ``lex``'s comb table that owns no slot: a walk
+    from it dies at its first symbol, IW_ANY included."""
+    owner = np.asarray(lex.comb.owner)
+    has = np.zeros(lex.comb.n_states, bool)
+    has[owner[owner >= 0]] = True
+    return int(np.flatnonzero(~has)[0])
+
+
+def lexer_wide_rows(lex, width: int, docs, n_rows: int = 4):
+    """(x int32 (R, width + 2), init int32 (R,), ext_len int32 (R,), raws)
+    of rows at the widest buckets for the pattern lexer's pass, from a
+    runtime/lexer_host.py::LexerTpu ``lex``: ``n_rows`` spans of ``width``
+    characters cut from the text of ``docs`` (bytes, NUL read as a space)
+    from the initial state; the first span again from
+    :func:`lexer_dead_end_state`, a row with no match at all, whose FromPos
+    chain visits every start; and a span one character short (its R anchor
+    on the last lane but one, padding after it)."""
+    cps = np.concatenate([np.frombuffer(d.decode("utf-8", "replace")
+                                        .encode("utf-32-le"), np.uint32)
+                          for d in docs]).astype(np.int32)
+    cps = np.where(cps == 0, 0x20, cps)
+    if len(cps) < n_rows * width:
+        raise ValueError(f"{len(cps)} characters, want {n_rows * width}")
+    M = width + 2
+    spans = [(cps[i * width : (i + 1) * width], int(lex.engine.initial))
+             for i in range(n_rows)]
+    spans += [(spans[0][0], lexer_dead_end_state(lex)),
+              (spans[1][0][: width - 1], int(lex.engine.initial))]
+    x = np.full((len(spans), M), -1, np.int32)
+    for r, (span, _ini) in enumerate(spans):
+        n = len(span)
+        x[r, 0] = lex._lanchor
+        x[r, 1 : n + 1] = lex.encode_chars(span)
+        x[r, n + 1] = lex._ranchor
+    return (x, np.array([ini for _s, ini in spans], np.int32),
+            np.array([len(s) + 2 for s, _i in spans], np.int32),
+            [s for s, _i in spans])
+
+
 SYLLAB_PATTERNS = 78000  # puts the image within 10% of syllab.bin's 1.18 MB
 SYLLAB_ANCHOR = 94  # '^': syllab.bin's left and right anchor
 HYPH_OPS = (0, 1, 7)  # NO_HYPH, SIMPLE_HYPH, DONT_CARE

@@ -67,7 +67,9 @@ Phases, each of which must pass (any failure exits non-zero):
               4 MiB: K9 must launch and the ids equal main-w's;
  17. kernels-l K9 against its plain version on the rows of every launch
               (every level and bucket width) of one uncached 4 MiB batch on
-              each pattern-lexer path; tolerance 0;
+              each pattern-lexer path, and on rows of 4,098 and 16,386
+              lanes (testing.lexer_wide_rows, through lexer_pass_packed
+              directly) with a row that matches nowhere; tolerance 0;
  18. model-h  a seeded syllab-shaped W2H hyphenation model (78,000 patterns,
               about syllab.bin's 1.18 MB) built by the port's copy of the
               pattern compiler; its automaton's size and the state that owns
@@ -168,17 +170,20 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from blingfire_tpu_torch.measure import (CMP_BYTES, CORPUS_BYTES, WIDE_DOC,
+                                         check, corpus_prefix, cuda_ms, log,
+                                         new_stats, packed_regions,
+                                         profiled_device_ms, reads,
+                                         self_device_us, units_np_launches)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 peak, taken for 32-bit scalar ops
-CORPUS_BYTES = 32 << 20  # end-to-end corpus
-CMP_BYTES = 4 << 20  # corpus prefix whose packed rows the kernels are held on
 ORACLE_DOCS = 500  # documents checked against the scalar oracle
 DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
 UNI_MODES = ("dense", "wide", "comb")
 CLASSIC_DOC = 1024  # the classic path's window: K2's widest row
 BPE_MODES = {"comb": 3000, "trie": 420}  # table mode -> CJK characters
-WIDE_DOC = 2048  # main-ww's window: past the compact lanes and K2's rows
 # kernel -> (source, the TPU kernel it replaces on each path)
 SOURCES = {
     "scatter_trie": ("blingfire_tpu_torch/kernels/csrc/scatter_trie.cu",
@@ -224,22 +229,6 @@ K_IDS = {"bpe_walk": "K1", "bpe_resolve": "K2", "scatter_trie": "K3",
          "unigram_viterbi": "K6", "wp_subword_dense": "K7",
          "wp_subword_comb": "K8", "lexer_pass": "K9", "hyph_segment": "K10",
          "pack_out": "K11", "shard_stats": "K12"}
-# profiler kernel names of each wrapper
-KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
-                "bpe_resolve": ("bpe_resolve_kernel",),
-                "scatter_trie": ("fill_kernel", "scatter_kernel"),
-                "pack_out_compact": ("pack_compact_pair_kernel",
-                                     "pack_compact_scalar_kernel"),
-                "unigram_walk": ("unigram_walk_kernel",),
-                "unigram_viterbi": ("unigram_viterbi_kernel",
-                                    "unigram_viterbi_wide_kernel"),
-                "wp_subword_dense": ("wp_subword_dense_kernel",),
-                "wp_subword_comb": ("wp_subword_comb_kernel",),
-                "lexer_pass": ("lexer_pass_kernel",),
-                "hyph_segment": ("hyph_segment_kernel",),
-                "pack_out": ("pack_out_pair_kernel",
-                             "pack_out_scalar_kernel"),
-                "shard_stats": ("shard_stats_kernel",)}
 HYPHEN = 0x2012  # the hyphen WordHyphenationWithModel inserts by default
 # document 107 of tests/corpus.py::full_corpus(n_random=60): the JAX
 # package's device lexer breaks a sentence after '."' there (ROADMAP.md C)
@@ -251,30 +240,6 @@ DOC_107 = ('&%6%9*9/=@#*66nxUktXncIA, \U0001f680\U0001f680\U0001f389'
            '\U0001f680\U0001f642\U0001d55e\U0001f680')
 
 
-def check(cond, msg) -> None:
-    if not cond:
-        raise RuntimeError(msg)
-
-
-def log(*a):
-    print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean ms per call of fn over reps back-to-back calls (CUDA events)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
-
-
 def max_abs_err(pairs) -> float:
     err = 0.0
     for a, b in pairs:
@@ -283,83 +248,6 @@ def max_abs_err(pairs) -> float:
             d = (a.double() - b.double()).abs().max().item()
             err = max(err, float(d))
     return err
-
-
-def _self_device_us(ev) -> float:
-    """Self device time (us) of a profiler event (name differs by version)."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(ev, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def profiled_device_ms(fn, stats, reps: int = 5) -> None:
-    """Profiler device ms per call of fn into each (kernel, path) entry of
-    ``stats``, summed over the kernel's names, and "records": the launches
-    the profile holds a record of, and the launches made (the launch
-    counts' rise over the profile); fn launches every kernel of
-    ``stats``.  The profiler drops some records (seen on the H100 for K10,
-    K5 and K7, up to all of a kernel's): a kernel short of records is
-    profiled again, up to twice, and keeps its most complete profile; the
-    phase fails when a kernel has no record at all."""
-    from blingfire_tpu_torch import kernels
-
-    todo = list(stats)
-    best = {}  # key -> (records, launches, device ms)
-    for attempt in range(3):
-        before = collections.Counter(kernels.launches)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a kernel of no interest and a pause first: the profiler has
-            # been seen to lose the first launches of a profile
-            torch.zeros(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-            time.sleep(0.2)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        launched = collections.Counter(kernels.launches) - before
-        per_name = collections.Counter()  # records of each name
-        us = collections.Counter()
-        seen = {}  # every event with device time: key -> (count, us)
-        for ev in prof.key_averages():
-            t_us = _self_device_us(ev)
-            if t_us <= 0:
-                continue
-            seen[ev.key[:100]] = (ev.count, round(t_us, 3))
-            for k, _path in todo:
-                hits = [pt for pt in KERNEL_NAMES[k] if pt in ev.key]
-                us[k] += t_us if hits else 0.0
-                for pt in hits:
-                    per_name[(k, pt)] += ev.count
-        for key in todo:
-            k = key[0]
-            # a launch runs every name of its kernel once at least
-            rec = max(per_name[(k, pt)] for pt in KERNEL_NAMES[k])
-            if key not in best or rec > best[key][0]:
-                best[key] = (rec, launched[k], us[k] / 1e3 / reps)
-        todo = [key for key in todo if best[key][0] < best[key][1]]
-        if not todo:
-            break
-        log(f"[profile] records of {[(key, best[key][:2]) for key in todo]} "
-            f"short (attempt {attempt + 1}); the profile's events with "
-            f"device time: {seen}")
-    for key, (rec, n, ms) in best.items():
-        check(n > 0 and rec > 0, f"the profiler recorded no launch of {key}")
-        stats[key].update(device_ms=ms, records=[rec, n])
-
-
-def new_stats(names, path: str) -> dict:
-    """Measurements of each kernel on one path, keyed (kernel, path)."""
-    return {(k, path): dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0,
-                            library_ms=None, device_ms=None, records=None)
-            for k in names}
-
-
-def reads():
-    from blingfire_tpu_torch.kernels import Reads
-
-    return Reads()
 
 
 def run_main(tok, docs, label: str, kernels, metrics, **kw) -> dict:
@@ -398,7 +286,7 @@ def run_main(tok, docs, label: str, kernels, metrics, **kw) -> dict:
         tok.encode_corpus_flat(docs, counters=metrics.Counters(), **kw)
         torch.cuda.synchronize()
     t_enc3 = time.perf_counter() - t0
-    busy = sum(_self_device_us(ev) for ev in prof.key_averages()) / 1e6
+    busy = sum(self_device_us(ev) for ev in prof.key_averages()) / 1e6
     log(f"[{label}] profiled call {t_enc3:.3f} s: device busy {busy:.6f} s "
         f"({busy / t_enc3:.6f} of the call), idle share "
         f"{1 - busy / t_enc3:.6f}")
@@ -431,21 +319,6 @@ def check_oracle(oracle_ids, docs, ids, bounds, edge, label: str) -> None:
     check_sampled(lambda i: oracle_ids(docs[i]),
                   lambda i: ids[bounds[i] : bounds[i + 1]].tolist(),
                   len(docs), edge, label)
-
-
-def packed_regions(native, tok, docs, spm_iw, raw_bytes: bool, charmap, dev):
-    """Packed rows of an uncached CMP_BYTES corpus prefix, by region."""
-    sub = corpus_prefix(docs, CMP_BYTES)
-    nu = native.units_analyze(sub, tok.n_doc, tok._sym2iw, spm_iw, raw_bytes,
-                              False, charmap)
-    R = nu.n_rows
-    check(R >= 2048, f"only {R} packed rows for the comparison")
-    xd = torch.from_numpy(nu.px[:R]).to(dev)
-    ld = torch.from_numpy(nu.plen[:R]).to(dev)
-    bounds = [(0, nu.split_rows1, 8, True),
-              (nu.split_rows1, nu.split_rows, 16, True),
-              (nu.split_rows, R, 16, False)]
-    return [(xd[lo:hi], ld[lo:hi], lw, b) for lo, hi, lw, b in bounds if hi > lo]
 
 
 def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
@@ -717,17 +590,6 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
     return stats
 
 
-def corpus_prefix(docs, n_bytes: int) -> list[bytes]:
-    """The corpus's first documents up to n_bytes (at least)."""
-    sub, tot = [], 0
-    for d in docs:
-        sub.append(d)
-        tot += len(d)
-        if tot >= n_bytes:
-            break
-    return sub
-
-
 def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
     """Phase 12: K7 and K8 against their plain versions on both length
     classes of one uncached 4 MiB batch, and K3 on the dense sub-grammar."""
@@ -857,7 +719,7 @@ def run_lexer_main(prod, call, docs, label: str, unit: str, count,
         call(docs, metrics.Counters())
         torch.cuda.synchronize()
     t4 = time.perf_counter() - t0
-    busy = sum(_self_device_us(ev) for ev in prof.key_averages()) / 1e6
+    busy = sum(self_device_us(ev) for ev in prof.key_averages()) / 1e6
     log(f"[{label}] profiled call {t4:.3f} s: device busy {busy:.6f} s "
         f"({busy / t4:.6f} of the call), idle share {1 - busy / t4:.6f}")
     check(n_bytes > 0 and n > 0 and peak > 0,
@@ -866,11 +728,38 @@ def run_lexer_main(prod, call, docs, label: str, unit: str, count,
     return dict(out=out, launches=launches)
 
 
+def lexer_wide_vs_plain(s, path: str, lex, sub, lexer_ops, dev) -> None:
+    """K9 against its plain version on testing.lexer_wide_rows at 4,098
+    and 16,386 lanes (one launch a width, through lexer_pass_packed); the
+    row that matches nowhere must have no visited start.  Errors into
+    ``s``."""
+    from blingfire_tpu_torch import testing
+
+    t = lex.tables
+    for width in (4096, lexer_ops.MAX_LEXER_ROW - 2):
+        x, init, elen, _raws = testing.lexer_wide_rows(lex, width, sub)
+        xd, idv, ed = (torch.from_numpy(a).to(dev) for a in (x, init, elen))
+        B, M = x.shape
+        k = lexer_ops.lexer_pass_packed(t, xd, idv, ed)
+        p = lexer_ops.pack5(*lexer_ops._lexer_pass_plain(t, xd, idv, ed))
+        torch.cuda.synchronize()
+        s["err"] = max(s["err"], max_abs_err([(k, p)]))
+        dead = B - 2  # lexer_wide_rows: the row from a dead-end state
+        check(int(k[dead, :M].sum()) == 0, f"{path}: the row that matches "
+              f"nowhere has visited starts at {M} lanes")
+        k_ms = cuda_ms(lambda: lexer_ops.lexer_pass_packed(t, xd, idv, ed), 10)
+        log(f"[kernels-l] {path} wide rows: {B} rows of {M} lanes (one "
+            f"matching nowhere) equal to the plain version; {k_ms:.5f} ms "
+            f"per launch; matches {int(k[:, :M].sum())}")
+
+
 def lexer_kernels(paths, docs, lexer_ops, dev) -> dict:
     """Phase 17: K9 against its plain version on the rows of every launch
     (every level and bucket width) that one uncached CMP_BYTES batch makes
-    on each pattern-lexer path.  ``paths``: path -> (LexerTpu, whether NUL
-    reads as a space, as WordsTpu decodes)."""
+    on each pattern-lexer path, then on wide rows
+    (:func:`lexer_wide_vs_plain`; not in the batch's sums).  ``paths``:
+    path -> (LexerTpu, whether NUL reads as a space, as WordsTpu
+    decodes)."""
     from blingfire_tpu_torch.runtime.lexer_host import decode_utf8
 
     sub = corpus_prefix(docs, CMP_BYTES)
@@ -917,6 +806,7 @@ def lexer_kernels(paths, docs, lexer_ops, dev) -> dict:
                 lexer_ops.lexer_pass_packed(t, xd, idv, ed)
 
         profiled_device_ms(once, st)
+        lexer_wide_vs_plain(s, path, lex, sub, lexer_ops, dev)
         bound, bound_by = bound_of(s)
         log(f"[kernels-l] {path}: {len(batches)} launches, {s['ms']:.4f} ms, "
             f"device {s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
@@ -960,7 +850,7 @@ def run_hyph_main(hy, words, n_bytes: int, kernels, metrics) -> dict:
         hy.process_batch(words, counters=metrics.Counters())
         torch.cuda.synchronize()
     t3 = time.perf_counter() - t0
-    busy = sum(_self_device_us(ev) for ev in prof.key_averages()) / 1e6
+    busy = sum(self_device_us(ev) for ev in prof.key_averages()) / 1e6
     log(f"[main-h] profiled call {t3:.3f} s: device busy {busy:.6f} s "
         f"({busy / t3:.6f} of the call), idle share {1 - busy / t3:.6f}")
     check(len(out) == len(words) and peak > 0 and st.unique > 0,
@@ -1091,25 +981,6 @@ def classic_launches(tok, sub, launch_rows, dev) -> list:
                 torch.from_numpy(np.ascontiguousarray(x[part, :w])).to(dev),
                 torch.from_numpy(np.ascontiguousarray(ln[part])).to(dev)))
     return launches
-
-
-def units_np_launches(tok, sub, dedup, bpe_ops, dev):
-    """The NumPy unit path's rows of ``sub``: (its unit batch, the row
-    width, [(x, lengths) of every launch on the card], split and pack
-    seconds on the host)."""
-    x, spm, ln, _status = tok._prep_batch(sub, with_spm=True)
-    t0 = time.perf_counter()
-    ub = dedup.split_units(x, spm, ln)
-    t_split = time.perf_counter() - t0
-    W = min(tok.n_doc, bpe_ops.RESOLVE_MAX_N)
-    t0 = time.perf_counter()
-    px, plen, _row, _off = dedup.pack_units(ub, W)
-    t_pack = time.perf_counter() - t0
-    step = dedup.launch_rows(tok, W, None)
-    launches = [(torch.from_numpy(px[lo : lo + step]).to(dev),
-                 torch.from_numpy(plen[lo : lo + step]).to(dev))
-                for lo in range(0, len(px), step)]
-    return ub, W, launches, t_split, t_pack
 
 
 def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:

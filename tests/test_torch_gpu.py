@@ -6,7 +6,7 @@ lane-group shape, L past a warp) and on random arcs at the widths where
 its launcher widens a group, K4 pack_out_compact at widths 1 to 1,024
 (aligned or not), the WordPiece pass (K7 dense, K8 comb, K3 on the
 dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
-wbd and sbd models, and K10 hyph_segment on syllab-shaped W2H models; K5,
+wbd and sbd models (also at 4,098 and 16,386 lanes), and K10 hyph_segment on syllab-shaped W2H models; K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
 takes a transition that the automaton does not have; K11 pack_out (at
 widths 1 to 1,024, aligned or not) and K12 shard_stats, K2 on the seeded
@@ -102,6 +102,31 @@ def test_walk_resolve_pack_kernels_match_plain(region, lw, bounded):
     ids, st, _en, counts, fb = res
     out = dedup.pack_out_compact(ids, st, counts, fb)
     assert torch.equal(out, dedup._pack_out_compact_plain(ids, st, counts, fb))
+
+
+@pytest.mark.parametrize("rank", [False, True], ids=["trie", "trie_rank"])
+def test_bpe_walk_outputs_have_the_plain_layout(rank):
+    """K1's outputs on the card have the shape, dtype and contiguity of
+    the plain version's and equal it, in trie and trie + rank modes."""
+    _need_cuda()
+    if rank:
+        tok = _spm_tok(False, "cuda", n_pairs=0)
+        spm = tok._spm_iw
+        x, ln, _status = tok._prep_batch(_spm_docs()[:64])
+        x, ln = torch.from_numpy(x).cuda(), torch.from_numpy(ln).cuda()
+    else:
+        tok, spm, regions = _setup()
+        x, ln = regions[1]
+    t = tok.tables
+    LW = bpe._walk_depth(t, None)
+    got = bpe.bpe_walk(t, x, ln, spm)
+    want = bpe._walk_plain(t, x, ln, spm, LW, t.max_len > LW)
+    assert (got[1] is None) == (not rank)
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        assert (g.dtype, g.shape) == (w.dtype, w.shape) and g.is_contiguous()
+        assert torch.equal(g, w)
 
 
 def test_encode_corpus_flat_on_the_card_matches_cpu():
@@ -379,6 +404,26 @@ def test_lexer_pass_kernel_on_edge_rows(name):
     _k9_matches_plain(lex.tables, *args)
     gated = dataclasses.replace(lex.tables, max_token_length=3)
     _k9_matches_plain(gated, *args)
+
+
+@pytest.mark.parametrize("width", [4096, lexer.MAX_LEXER_ROW - 2])
+@pytest.mark.parametrize("name", ["wbd", "sbd"])
+def test_lexer_pass_kernel_on_wide_rows(name, width):
+    """K9 at 4,098 and 16,386 lanes on wbd's and sbd's tables:
+    testing.lexer_wide_rows (one row matches nowhere, so its FromPos chain
+    visits every start) and testing.lexer_edge_rows widened to the
+    bucket."""
+    _need_cuda()
+    lex = _lex(name, "cuda")
+    x, init, elen, _raws = testing.lexer_wide_rows(
+        lex, width, testing.zipf_corpus(400_000))
+    got = _k9_matches_plain(lex.tables, *(torch.from_numpy(a).cuda()
+                                          for a in (x, init, elen)))
+    assert int(got[len(x) - 2, : width + 2].sum()) == 0
+    assert int(got[0, : width + 2].sum()) > 0
+    x, init, elen, _raws = testing.lexer_edge_rows(lex, width)
+    _k9_matches_plain(lex.tables, *(torch.from_numpy(a).cuda()
+                                    for a in (x, init, elen)))
 
 
 def test_words_and_sentences_on_the_card_match_cpu():
