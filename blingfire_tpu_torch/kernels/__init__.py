@@ -47,11 +47,11 @@ KERNELS = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P]),
     "wp_subword_dense": ("wp_subword.cu", "bf_wp_subword_dense",
-                         [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _P]),
+                         [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P]
+                         + [_I] * 8 + [_P]),
     "wp_subword_comb": ("wp_subword.cu", "bf_wp_subword_comb",
-                        [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+                        + [_I] * 8 + [_P]),
     "lexer_pass": ("lexer_pass.cu", "bf_lexer_pass",
                    [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                     _P]),

@@ -1,16 +1,15 @@
 // K5 unigram_walk: the lockstep vocabulary walk of the unigram LM.
 //
 // Replaces the WALK of blingfire_tpu/ops/unigram.py::unigram_segment
-// (unigram.py:164-213).  One thread per (row b, start p) walks up to L
-// symbols; the table mode is a template parameter:
+// (unigram.py:164-213).  Every (row b, start p) walks up to L symbols and
+// records the Mealy key and score of each final by (start, depth): m_key
+// and m_score are (B, N, L), the layout K6 reads.  The table mode is a
+// template parameter:
 //   dense  one gather per live step: dense[state * A + c] packs
 //          (ow << 16) | ((next + 1) << 1) | final;
 //   wide   three: base[state], then wide_a and wide_b at the same slot;
 //   comb   five: base, owner, nxt, ow, final.
-// A score gather happens only at a final.  The thread writes m_key and
-// m_score for every depth of its start, (B, N, L) by (start, depth), so the
-// output equals the plain version's lane for lane; after a lane's state dies
-// it writes the empty value without touching the tables.
+// A score gather happens only at a final.
 //
 // Every gather keeps the clamp XLA applies silently (unigram.py:176-180,
 // 187-188, 199-200, 205-206): CUDA would read out of bounds instead; but a
@@ -22,9 +21,15 @@
 // reads x past the row's length after the first step; only the start is
 // masked.
 //
-// Bound: bytes.  The B*N*L*8 bytes of output plus the table gathers of the
-// live lane-steps; the tables are small enough to sit in L2 (a 32k-entry
-// dense table is tens of MB), so the gathers mostly hit there.
+// Bound: bytes, the B*N*L*8 bytes of output above all (the tables sit in
+// L2).  So a block takes a tile of T starts of one row and walks it in
+// chunks of up to D depths: the row's symbols for the chunk are loaded
+// into shared memory once, each lane walks until its state dies (then
+// stops stepping), the chunk's keys and scores are staged in shared
+// memory by depth, and the block writes the tile's span of m_key and
+// m_score with coalesced 16-byte stores (4-byte ones where the span is
+// not 16-byte aligned).  Once every lane of a tile is dead, its remaining
+// depths are written as the empty value without stepping.
 
 #include <cfloat>
 
@@ -33,6 +38,9 @@
 namespace {
 
 constexpr float kNegInf = -FLT_MAX;
+constexpr int T = 128;       // starts a tile: the block's threads
+constexpr int D = 32;        // depths a chunk, at most
+constexpr int SP = T + 1;    // pitch of a staged depth: no bank conflicts
 
 __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
     return v < lo ? lo : (v > hi ? hi : v);
@@ -98,41 +106,117 @@ __device__ __forceinline__ int32_t step(const Tables& t, int32_t state,
     return ns;
 }
 
-template <int MODE>
-__global__ void unigram_walk_kernel(const int32_t* __restrict__ x,
-                                    const int32_t* __restrict__ lengths,
-                                    Tables t, int B, int N, int L,
-                                    int32_t* __restrict__ m_key,
-                                    float* __restrict__ m_score) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (int64_t)B * N) return;
-    const int b = (int)(i / N), p = (int)(i % N);
-    const int32_t* xr = x + (int64_t)b * N;
-    int32_t* kout = m_key + i * L;
-    float* sout = m_score + i * L;
-    int32_t state = (p < lengths[b] && xr[p] >= 0) ? 0 : -1;
-    uint32_t sum_ow = 0;  // int32 wrap-around, as XLA adds
-    for (int d = 0; d < L; ++d) {
-        const int q = p + d;
-        const int32_t c = q < N ? xr[q] : -1;
-        int32_t key = -1;
-        float score = kNegInf;
-        if (state >= 0 && c >= 0) {
-            int32_t ow_add;
-            bool fin;
-            state = step<MODE>(t, state, c, &ow_add, &fin);
-            sum_ow += (uint32_t)ow_add;
-            if (fin) {
-                const int32_t k = (int32_t)clamp64((int32_t)sum_ow, 0, t.nkeys - 1);
-                key = k;
-                score = __ldg(t.scores + k);
+// Writes a tile's chunk: start r < nr, depth column k < w, to gk and gs
+// (the score's bits) at r * L + k, from the staged columns sk and ss
+// (entry k * SP + r) or, when sk is null, the empty value.  Threads take
+// consecutive 16-byte vectors of the chunk's span when it is contiguous
+// (w == L) or made of rows of whole vectors, and it is 16-byte aligned;
+// else consecutive words.
+__device__ __forceinline__ void put(int32_t* __restrict__ gk,
+                                    int32_t* __restrict__ gs, int L, int nr,
+                                    int w, const int32_t* sk,
+                                    const int32_t* ss) {
+    const int32_t empty_s = __float_as_int(kNegInf);
+    const int n = nr * w;
+    const bool vec = (((uintptr_t)gk | (uintptr_t)gs) & 15) == 0 &&
+                     (w == L || (L % 4 == 0 && w % 4 == 0));
+    const int nv = vec ? n / 4 : 0;
+    for (int v = threadIdx.x; v < nv; v += T) {
+        int r = 4 * v / w, k = 4 * v - r * w;
+        const int64_t off = (int64_t)r * L + k;
+        int32_t ka[4], sa[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            ka[u] = sk ? sk[k * SP + r] : -1;
+            sa[u] = sk ? ss[k * SP + r] : empty_s;
+            if (++k == w) {
+                k = 0;
+                ++r;
             }
-        } else {
-            state = -1;
         }
-        kout[d] = key;
-        sout[d] = score;
+        *reinterpret_cast<int4*>(gk + off) = make_int4(ka[0], ka[1], ka[2], ka[3]);
+        *reinterpret_cast<int4*>(gs + off) = make_int4(sa[0], sa[1], sa[2], sa[3]);
     }
+    for (int e = 4 * nv + threadIdx.x; e < n; e += T) {
+        const int r = e / w, k = e - r * w;
+        const int64_t off = (int64_t)r * L + k;
+        gk[off] = sk ? sk[k * SP + r] : -1;
+        gs[off] = sk ? ss[k * SP + r] : empty_s;
+    }
+}
+
+// grid: B * tiles blocks of T threads, block i = tile (i % tiles) of row
+// (i / tiles); dynamic shared memory: T + D symbols, then two staged
+// chunks of min(L, D) depths
+template <int MODE>
+__global__ void __launch_bounds__(T)
+unigram_walk_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ lengths, Tables t, int N,
+                    int L, int tiles, int32_t* __restrict__ m_key,
+                    int32_t* __restrict__ m_score) {
+    extern __shared__ int32_t smem[];
+    int32_t* xs = smem;          // T + D: the chunk's symbols
+    int32_t* sk = xs + T + D;    // min(L, D) * SP keys, by depth
+    int32_t* ss = sk + min(L, D) * SP;  // and the scores' bits
+    const int b = (int)(blockIdx.x / tiles);
+    const int p0 = (int)(blockIdx.x % tiles) * T;
+    const int tid = threadIdx.x;
+    const int nr = min(T, N - p0);
+    const int32_t* xr = x + (int64_t)b * N;
+    const int64_t base = ((int64_t)b * N + p0) * L;
+    int32_t state =
+        (tid < nr && p0 + tid < lengths[b] && xr[p0 + tid] >= 0) ? 0 : -1;
+    uint32_t sum_ow = 0;  // int32 wrap-around, as XLA adds
+    for (int d0 = 0; d0 < L; d0 += D) {
+        const int w = min(D, L - d0);
+        if (!__syncthreads_or(state >= 0)) {
+            // every lane is dead: the empty value at every depth left
+            put(m_key + base + d0, m_score + base + d0, L, nr, L - d0,
+                nullptr, nullptr);
+            return;
+        }
+        for (int i = tid; i < T + w; i += T) {
+            const int q = p0 + d0 + i;
+            xs[i] = q < N ? xr[q] : -1;
+        }
+        __syncthreads();
+        int j = 0;
+        for (; j < w && state >= 0; ++j) {
+            const int32_t c = xs[tid + j];
+            int32_t key = -1;
+            float score = kNegInf;
+            if (c >= 0) {
+                int32_t ow_add;
+                bool fin;
+                state = step<MODE>(t, state, c, &ow_add, &fin);
+                sum_ow += (uint32_t)ow_add;
+                if (fin) {
+                    key = (int32_t)clamp64((int32_t)sum_ow, 0, t.nkeys - 1);
+                    score = __ldg(t.scores + key);
+                }
+            } else {
+                state = -1;
+            }
+            sk[j * SP + tid] = key;
+            ss[j * SP + tid] = __float_as_int(score);
+        }
+        for (; j < w; ++j) {  // the lane died: no more steps
+            sk[j * SP + tid] = -1;
+            ss[j * SP + tid] = __float_as_int(kNegInf);
+        }
+        __syncthreads();
+        put(m_key + base + d0, m_score + base + d0, L, nr, w, sk, ss);
+    }
+}
+
+template <int MODE>
+int launch(const int32_t* x, const int32_t* lengths, const Tables& t, int B,
+           int N, int L, int32_t* m_key, int32_t* m_score, cudaStream_t s) {
+    const int tiles = (N + T - 1) / T;
+    const size_t shm = sizeof(int32_t) * (T + D + 2 * (size_t)(L < D ? L : D) * SP);
+    unigram_walk_kernel<MODE><<<(unsigned)((int64_t)B * tiles), T, shm, s>>>(
+        x, lengths, t, N, L, tiles, m_key, m_score);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -146,21 +230,14 @@ extern "C" int bf_unigram_walk(
     int32_t* m_key, float* m_score, void* stream) {
     const Tables t{dense, dense_size, base, owner, nxt, ow, final_,
                    wide_a, wide_b, n_slots, n_states, scores, nkeys, A};
-    const int threads = 128;
-    const int64_t total = (int64_t)B * N;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (mode == 0) {
-        unigram_walk_kernel<0><<<blocks, threads, 0, s>>>(x, lengths, t, B, N,
-                                                          L, m_key, m_score);
-    } else if (mode == 1) {
-        unigram_walk_kernel<1><<<blocks, threads, 0, s>>>(x, lengths, t, B, N,
-                                                          L, m_key, m_score);
-    } else if (mode == 2) {
-        unigram_walk_kernel<2><<<blocks, threads, 0, s>>>(x, lengths, t, B, N,
-                                                          L, m_key, m_score);
-    } else {
+    if (B <= 0 || N <= 0 || L < 1 || (int64_t)B * ((N + T - 1) / T) > INT32_MAX)
         return (int)cudaErrorInvalidValue;
+    int32_t* ms = reinterpret_cast<int32_t*>(m_score);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (mode) {
+        case 0: return launch<0>(x, lengths, t, B, N, L, m_key, ms, s);
+        case 1: return launch<1>(x, lengths, t, B, N, L, m_key, ms, s);
+        case 2: return launch<2>(x, lengths, t, B, N, L, m_key, ms, s);
+        default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }

@@ -9,41 +9,53 @@
 // (base, owner, nxt, final, moore_ow); the main path takes it only when
 // make_dense_sub declines the dense table.  Both end in wp_emit.cuh.
 //
-// One block a row, one thread a start position, lw steps at most; a lane
-// stops at its first dead state (the JAX walk carries -1 from there on).
-// XLA clamps every gather silently and CUDA does not, so each clamp is
-// explicit: the dense flat index to [0, top] (lexer.py:273-276), a state
-// index to [0, n_states - 1], ow_perm's index (lexer.py:289) and the action
-// lookups (wp_emit.cuh).  The comb slot is not clamped: a slot outside
-// [0, n_slots) is no transition.  JAX clamps it (lexer.py:389-392) and so
-// takes slot 0's transition from the state that owns slot 0 when the slot
-// falls below 0; the automaton has no such transition (ROADMAP.md
-// section C).  The token-length gate (d >= max_token_length: only the R
-// anchor passes, lexer.py:277-279) is kept though lw <= 42 never reaches
-// the usual 300.
+// One launch takes a batch's rows of both unit-length classes: rows below
+// `split` walk lw steps at most, the others lw_hi.  One warp a row, kRows
+// rows a block and no block barrier; a thread walks the row's positions
+// lane + 32k (k < 4) in lockstep, so their gathers are in flight together,
+// and a start stops at its first dead state (the JAX walk carries -1 from
+// there on).  XLA clamps every gather silently and CUDA does not, so each
+// clamp is explicit: the dense flat index to [0, top] (lexer.py:273-276), a
+// state index to [0, n_states - 1], ow_perm's index (lexer.py:289) and the
+// action lookups (wp_emit.cuh).  The comb slot is not clamped: a slot
+// outside [0, n_slots) is no transition.  JAX clamps it (lexer.py:389-392)
+// and so takes slot 0's transition from the state that owns slot 0 when
+// the slot falls below 0; the automaton has no such transition
+// (ROADMAP.md section C).  The token-length gate (d >= max_token_length:
+// only the R anchor passes, lexer.py:277-279) is kept though lw <= 42
+// never reaches the usual 300.
 //
 // Bound: bytes.  The rows (x, init: 8 bytes a lane) in, M + 2 int32 out,
 // and each table entry the walks and the action lookups read, once.  The
-// dense table of a bert-sized vocabulary is tens of MB, near the 50 MB L2;
-// the sequential visited scan (128 steps on one thread) and the block of
-// 128 threads a row are what keep this kernel from its bound.
+// dense table of a bert-sized vocabulary is tens of MB, near the 50 MB L2,
+// so a walk is a chain of L2 (or DRAM) round trips: a row takes as long as
+// its longest walk, and one launch puts every row of a batch in flight at
+// once.
 
 #include "wp_emit.cuh"
 
 namespace {
 
 using wp::clamp64;
+using wp::kPer;
+
+constexpr int kRows = 4;  // rows (warps) a block
 
 struct Row {
     const int32_t* x;     // (B, M) dense input weights, -1 padding
     const int32_t* init;  // (B, M) per-lane initial state
+    int64_t B;
     int M;
     int32_t l_iw, r_iw;
-    int lw;
+    int lw, split, lw_hi;  // rows below split walk lw steps, others lw_hi
     int max_tok;
     int32_t* out;  // (B, M + 2)
 };
 
+// A table's lockstep step: the next state of each of a thread's starts
+// from state st[k] on symbol c[k] (-1: none; a dead start or a padding
+// symbol has none), its gathers for the kPer starts issued together; a
+// final; and the Moore Ow of the deepest final, gathered once.
 struct Dense {
     const int32_t* dnext;
     int64_t top;  // dnext entries - 1
@@ -51,6 +63,24 @@ struct Dense {
     int n_ow;
     int n_f;
     int n_a;
+
+    __device__ __forceinline__ void step(const int32_t (&st)[kPer],
+                                         const int32_t (&c)[kPer],
+                                         int32_t (&ns)[kPer]) const {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+            ns[k] = st[k] >= 0 && c[k] >= 0
+                        ? __ldg(dnext + clamp64((int64_t)st[k] * n_a + c[k],
+                                                0, top))
+                        : -1;
+    }
+    // finals are numbered first
+    __device__ __forceinline__ bool is_final(int32_t ns) const {
+        return ns >= 0 && ns < n_f;
+    }
+    __device__ __forceinline__ int32_t ow_of(int32_t fin) const {
+        return fin >= 0 ? __ldg(ow_perm + clamp64(fin, 0, n_ow - 1)) : -1;
+    }
 };
 
 struct Comb {
@@ -61,95 +91,140 @@ struct Comb {
     const int32_t* moore_ow;
     int n_states;
     int n_slots;
+
+    __device__ __forceinline__ void step(const int32_t (&st)[kPer],
+                                         const int32_t (&c)[kPer],
+                                         int32_t (&ns)[kPer]) const {
+        int64_t raw[kPer];
+        bool in[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+            const bool live = st[k] >= 0 && c[k] >= 0;
+            raw[k] = live ? (int64_t)__ldg(base + clamp64(st[k], 0,
+                                                          n_states - 1)) + c[k]
+                          : -1;
+            // no transition outside the slot array (ops/lexer.py::comb_lookup)
+            in[k] = live && raw[k] >= 0 && raw[k] < n_slots;
+        }
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+            in[k] = in[k] && __ldg(owner + raw[k]) == st[k];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) ns[k] = in[k] ? __ldg(nxt + raw[k]) : -1;
+    }
+    __device__ __forceinline__ bool is_final(int32_t ns) const {
+        return ns >= 0 && __ldg(final_ + clamp64(ns, 0, n_states - 1)) != 0;
+    }
+    __device__ __forceinline__ int32_t ow_of(int32_t fin) const {
+        return fin >= 0 ? __ldg(moore_ow + clamp64(fin, 0, n_states - 1)) : -1;
+    }
 };
 
-// deepest final of the walk from lane p: (*fin_pos, *fin_ow)
-__device__ __forceinline__ void walk(const Dense& t, const Row& r,
-                                     const int32_t* xs, int p, int32_t state,
-                                     int32_t* fin_pos, int32_t* fin_ow) {
-    int32_t fin_state = -1;
-    for (int d = 0; d < r.lw && state >= 0; ++d) {
-        const int32_t c = xs[p + d];
-        int32_t ns = -1;
-        if (c >= 0)
-            ns = __ldg(t.dnext + clamp64((int64_t)state * t.n_a + c, 0, t.top));
-        if (d >= r.max_tok && c != r.r_iw) ns = -1;
-        if (ns >= 0 && ns < t.n_f) {
-            *fin_pos = p + d;
-            fin_state = ns;
-        }
-        state = ns;
+// The walks from the thread's positions p = 32k + lane whose go[k] is set,
+// in lockstep: the deepest final's position and Moore Ow (-1: none).
+template <class T>
+__device__ __forceinline__ void walk(const T& t, const Row& r, int lw,
+                                     const int32_t* xs,
+                                     const int32_t (&init)[kPer],
+                                     const bool (&go)[kPer],
+                                     int32_t (&fin_pos)[kPer],
+                                     int32_t (&fin_ow)[kPer]) {
+    const int lane = threadIdx.x & 31;
+    int32_t st[kPer], fin[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        st[k] = go[k] ? init[k] : -1;
+        fin[k] = -1;
+        fin_pos[k] = -1;
     }
-    *fin_ow = fin_state >= 0
-                  ? __ldg(t.ow_perm + clamp64(fin_state, 0, t.n_ow - 1))
-                  : -1;
-}
-
-__device__ __forceinline__ void walk(const Comb& t, const Row& r,
-                                     const int32_t* xs, int p, int32_t state,
-                                     int32_t* fin_pos, int32_t* fin_ow) {
-    for (int d = 0; d < r.lw && state >= 0; ++d) {
-        const int32_t c = xs[p + d];
-        int32_t ns = -1;
-        if (c >= 0) {
-            const int32_t bs =
-                __ldg(t.base + clamp64(state, 0, t.n_states - 1));
-            // no transition outside the slot array (ops/lexer.py::comb_lookup)
-            const int64_t raw = (int64_t)bs + c;
-            if (raw >= 0 && raw < t.n_slots && __ldg(t.owner + raw) == state)
-                ns = __ldg(t.nxt + raw);
-        }
-        if (d >= r.max_tok && c != r.r_iw) ns = -1;
-        if (ns >= 0) {
-            const int64_t s = clamp64(ns, 0, t.n_states - 1);
-            if (__ldg(t.final_ + s)) {
-                *fin_pos = p + d;
-                *fin_ow = __ldg(t.moore_ow + s);
+    for (int d = 0; d < lw; ++d) {
+        bool live = false;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) live |= st[k] >= 0;
+        if (!live) break;
+        int32_t c[kPer], ns[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+            c[k] = st[k] >= 0 ? xs[32 * k + lane + d] : -1;
+        t.step(st, c, ns);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+            if (d >= r.max_tok && c[k] != r.r_iw) ns[k] = -1;
+            if (t.is_final(ns[k])) {
+                fin_pos[k] = 32 * k + lane + d;
+                fin[k] = ns[k];
             }
+            st[k] = ns[k];
         }
-        state = ns;
     }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) fin_ow[k] = t.ow_of(fin[k]);
 }
 
 template <class T>
 __device__ __forceinline__ void wp_subword_row(const T& t, const Row& r,
                                                const wp::Actions& a) {
     extern __shared__ int32_t smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t b = (int64_t)blockIdx.x * kRows + warp;
+    if (b >= r.B) return;  // the whole warp: no block barrier follows
     const int M = r.M;
-    int32_t* xs = smem;              // M + lw + 1: the row, then -1 padding
-    int32_t* skip = xs + M + r.lw + 1;  // M
-    int32_t* vis = skip + M;            // M
-    int* buf = vis + M;                 // 32
-    const int64_t b = blockIdx.x;
-    const int p = threadIdx.x;
+    const int lw = b < r.split ? r.lw : r.lw_hi;
+    // the row, then -1 padding for the walks past its end
+    int32_t* xs = smem + warp * (M + max(r.lw, r.lw_hi) + 1);
     const int32_t* xrow = r.x + b * M;
-    for (int i = p; i < M + r.lw + 1; i += blockDim.x)
-        xs[i] = i < M ? xrow[i] : -1;
-    __syncthreads();
-    const bool active = p < M;
-    const int32_t xp = active ? xs[p] : -1;
-    const bool valid = xp >= 0 && xp != r.r_iw;
-    int32_t fin_pos = -1, fin_ow = -1;
-    if (valid) walk(t, r, xs, p, __ldg(r.init + b * M + p), &fin_pos, &fin_ow);
-    wp::emit_row(a, M, p, active, xp, valid, r.l_iw, fin_pos, fin_ow, skip,
-                 vis, buf, r.out + b * (M + 2));
+    // ---- LOAD
+    for (int i = lane; i < M + lw + 1; i += 32) xs[i] = i < M ? xrow[i] : -1;
+    __syncwarp();
+    // ---- WALK
+    int32_t xp[kPer], init[kPer], fin_pos[kPer], fin_ow[kPer];
+    bool go[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        const int p = 32 * k + lane;
+        xp[k] = p < M ? xs[p] : -1;
+        go[k] = xp[k] >= 0 && xp[k] != r.r_iw;
+        init[k] = go[k] ? __ldg(r.init + b * M + p) : -1;
+    }
+    walk(t, r, lw, xs, init, go, fin_pos, fin_ow);
+    // ---- SCAN
+    wp::Start s[kPer];
+    int32_t next[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        const int p = 32 * k + lane;
+        if (p < M) {
+            s[k] = wp::action(a, M, p, xp[k], go[k], r.l_iw, fin_pos[k],
+                              fin_ow[k]);
+        } else {
+            s[k] = wp::Start{0, p + 1, false};
+        }
+        next[k] = s[k].next;
+    }
+    const unsigned vis = wp::visited(next);
+    // ---- EMIT
+    wp::emit_row(M, s, vis, r.out + b * (M + 2));
 }
 
-__global__ void wp_subword_dense_kernel(Dense t, Row r, wp::Actions a) {
+__global__ void __launch_bounds__(32 * kRows)
+wp_subword_dense_kernel(Dense t, Row r, wp::Actions a) {
     wp_subword_row(t, r, a);
 }
 
-__global__ void wp_subword_comb_kernel(Comb t, Row r, wp::Actions a) {
+__global__ void __launch_bounds__(32 * kRows)
+wp_subword_comb_kernel(Comb t, Row r, wp::Actions a) {
     wp_subword_row(t, r, a);
 }
 
 template <class T>
 int launch(void (*kernel)(T, Row, wp::Actions), const T& t, const Row& r,
-           const wp::Actions& a, int B, cudaStream_t s) {
-    if (B <= 0) return 0;
-    const int threads = (r.M + 31) / 32 * 32;
-    const size_t shm = sizeof(int32_t) * (size_t)(3 * r.M + r.lw + 1 + 32);
-    kernel<<<(unsigned)B, threads, shm, s>>>(t, r, a);
+           const wp::Actions& a, cudaStream_t s) {
+    if (r.B <= 0) return 0;
+    if (r.M < 1 || r.M > wp::kMaxRow) return (int)cudaErrorInvalidValue;
+    const int64_t blocks = (r.B + kRows - 1) / kRows;
+    const int lw_max = r.lw > r.lw_hi ? r.lw : r.lw_hi;
+    const size_t shm = sizeof(int32_t) * kRows * (size_t)(r.M + lw_max + 1);
+    kernel<<<(unsigned)blocks, 32 * kRows, shm, s>>>(t, r, a);
     return (int)cudaGetLastError();
 }
 
@@ -159,12 +234,12 @@ extern "C" int bf_wp_subword_dense(
     const int32_t* dnext, int64_t n_dnext, const int32_t* ow_perm, int n_ow,
     int n_f, int n_a, const int32_t* act_right, const int32_t* act_tag,
     const int32_t* act_fn, int n_acts, const int32_t* x, const int32_t* init,
-    int B, int M, int l_iw, int r_iw, int lw, int max_tok, int32_t* out,
-    void* stream) {
+    int B, int M, int l_iw, int r_iw, int lw, int split, int lw_hi,
+    int max_tok, int32_t* out, void* stream) {
     const Dense t{dnext, n_dnext - 1, ow_perm, n_ow, n_f, n_a};
-    const Row r{x, init, M, l_iw, r_iw, lw, max_tok, out};
+    const Row r{x, init, B, M, l_iw, r_iw, lw, split, lw_hi, max_tok, out};
     const wp::Actions a{act_right, act_tag, act_fn, n_acts};
-    return launch(wp_subword_dense_kernel, t, r, a, B, (cudaStream_t)stream);
+    return launch(wp_subword_dense_kernel, t, r, a, (cudaStream_t)stream);
 }
 
 extern "C" int bf_wp_subword_comb(
@@ -172,9 +247,10 @@ extern "C" int bf_wp_subword_comb(
     const uint8_t* final_, const int32_t* moore_ow, int n_states, int n_slots,
     const int32_t* act_right, const int32_t* act_tag, const int32_t* act_fn,
     int n_acts, const int32_t* x, const int32_t* init, int B, int M, int l_iw,
-    int r_iw, int lw, int max_tok, int32_t* out, void* stream) {
+    int r_iw, int lw, int split, int lw_hi, int max_tok, int32_t* out,
+    void* stream) {
     const Comb t{base, owner, nxt, final_, moore_ow, n_states, n_slots};
-    const Row r{x, init, M, l_iw, r_iw, lw, max_tok, out};
+    const Row r{x, init, B, M, l_iw, r_iw, lw, split, lw_hi, max_tok, out};
     const wp::Actions a{act_right, act_tag, act_fn, n_acts};
-    return launch(wp_subword_comb_kernel, t, r, a, B, (cudaStream_t)stream);
+    return launch(wp_subword_comb_kernel, t, r, a, (cudaStream_t)stream);
 }

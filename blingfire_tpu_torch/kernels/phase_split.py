@@ -1,21 +1,29 @@
-"""K9 lexer_pass's and K1 bpe_walk's time split on the card.
+"""The time split of K9 lexer_pass, K1 bpe_walk, K5 unigram_walk and K7
+wp_subword_dense (with K8 wp_subword_comb) on the card.
 
     python3 -m blingfire_tpu_torch.kernels.phase_split [--out FILE]
-        [k9:LABEL=SOURCE ...] [k1:LABEL=SOURCE ...]
+        [--only k9,k1,k5,k7] [k9:LABEL=SOURCE ...] [k1:LABEL=SOURCE ...]
+        [k5:LABEL=SOURCE ...] [k7:LABEL=SOURCE ...]
 
 Each SOURCE defaults to this checkout's ``kernels/csrc/lexer_pass.cu``
-(K9) and ``bpe_walk.cu`` (K1), labelled "checkout"; another version of a
-source (unpacked with ``git archive`` into an ignored directory) is given
-as ``k9:LABEL=PATH``.  A source is built by nvcc for sm_90a and launched
-in place of the checkout's entry point through the checkout's wrapper, so
-its entry point must take the checkout's arguments.
+(K9), ``bpe_walk.cu`` (K1), ``unigram_walk.cu`` (K5) and ``wp_subword.cu``
+(K7 and K8), labelled "checkout"; another version of a source (unpacked
+with ``git archive`` into an ignored directory) is given as
+``k9:LABEL=PATH``.  A source is built by nvcc for sm_90a beside the
+checkout's headers and launched in place of the checkout's entry point
+through the checkout's wrapper, so its entry point must take the
+checkout's arguments.  ``--only`` runs the named kernels (by default all four).  Two versions
+given in turns under four labels (parent, change, change2, parent2) are
+timed against the host's and the card's drift.
 
-K9: a source with phase marker comments (``// ---- NAME`` in the kernel)
-is also built as a copy with a ``clock64()`` stamp at each marker.  Thread
-0 of each block adds the cycles since the last marker to the phase it
-closes; the block's sums are written at the kernel's end.  The rows are
-those of every launch of one uncached 4 MiB batch on the words (wbd),
-sentences (sbd) and wp_lexer (bert-shaped) paths, as chip_smoke.py's
+Phase stamps: a source with phase marker comments (``// ---- NAME``, in
+the kernel or in a device function of the source it calls) is also built as a
+copy with a ``clock64()`` stamp at each marker.  Thread 0 of each block
+adds the cycles since the last marker to the phase it closes; the block's
+sums are written at the kernel's end.
+
+K9: the rows of every launch of one uncached 4 MiB batch on the words
+(wbd), sentences (sbd) and wp_lexer (bert-shaped) paths, as chip_smoke.py's
 kernels-l builds them.  Per launch and source: the planes equal the plain
 version (tolerance 0); events and profiler device ms; with markers, each
 phase's share of the blocks' cycles and the events ms of the stamped
@@ -29,6 +37,20 @@ capped at LW = 1, 2, 4, 8, 16 on the same rows; the slope of device ms over
 LW, per step, tells a DRAM-latency chain from an L2-latency one.  Then the
 checkout's wrapper's host ns a call by part at the first region's shape.
 
+K5: events and device ms on the xlnet-shaped model's three unit regions of
+one uncached 4 MiB batch in the dense, wide and comb table modes, and on
+main-ww's launches (304 rows of 1,024), each equal to the plain version;
+the walk's live lane-steps against all B * N * L.
+
+K7 and K8: the bert-shaped model's packed rows of both unit-length
+classes of one uncached 4 MiB batch, as chip_smoke.py's kernels-w packs
+them: events and device ms of the batch in one launch (as the hybrid
+launches it), equal to the plain version; for K7 also each class alone
+(as the data-parallel runner launches a slab), with markers K7's phase
+shares and the cycles of the row each block's thread 0 runs; the visited
+chain's hops a row against the row's 128 lanes, and the walk's live
+lane-steps.
+
 Prints the card's name, power limit and SM clock, one log line per launch
 and a JSON object per kernel; writes them all to FILE (default
 build/blingfire_tpu_torch/phase_split.json).  Needs one card;
@@ -37,7 +59,9 @@ imports nothing of JAX or of blingfire_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import json
 import os
 import re
@@ -48,11 +72,17 @@ import time
 from blingfire_tpu_torch import measure
 
 MARKER = re.compile(r"^[ \t]*// -+ ([A-Z]+)[ \t]*$", re.M)
+INCLUDE = re.compile(r"^#include [^\n]*", re.M)
+# the stamps' state lives in shared memory at file scope, so a marker in a
+# device function the kernel calls stamps too
 STAMP_HEAD = r"""
 __device__ unsigned long long* bf_phase_clock;
 extern "C" int bf_phase_set(unsigned long long* p) {
     return (int)cudaMemcpyToSymbol(bf_phase_clock, &p, sizeof(p));
 }
+__shared__ unsigned long long bf_acc[BF_NPHASE];
+__shared__ unsigned long long bf_last;
+__shared__ int bf_cur;
 #define BF_PHASE(k)                                                     \
     do {                                                                \
         if (threadIdx.x == 0) {                                         \
@@ -64,6 +94,31 @@ extern "C" int bf_phase_set(unsigned long long* p) {
     } while (0)
 """
 LW_CAPS = (1, 2, 4, 8, 16)
+
+
+@functools.lru_cache(maxsize=1)
+def _corpus():
+    from blingfire_tpu_torch import testing
+
+    return testing.zipf_corpus(measure.CORPUS_BYTES)
+
+
+@contextlib.contextmanager
+def swapped(fns: dict):
+    """The checkout's wrappers launch the entry points of ``fns`` (name ->
+    (entry point, bf_error_string)) in place of their own."""
+    from blingfire_tpu_torch import kernels
+
+    saved = {n: kernels._fns.get(n) for n in fns}
+    kernels._fns.update(fns)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            if f is None:
+                kernels._fns.pop(n, None)
+            else:
+                kernels._fns[n] = f
 
 
 def _body(src: str, kernel: str) -> tuple[int, int]:
@@ -82,32 +137,39 @@ def _body(src: str, kernel: str) -> tuple[int, int]:
 
 
 def instrument(src: str, kernel: str) -> tuple[str, list[str]]:
-    """The source with a stamp at each phase marker of ``kernel`` and at its
-    end; the phase names ("START" first: before the first marker)."""
+    """The source with a stamp at each phase marker (anywhere in it) and at
+    the end of ``kernel``, which starts the clock and writes each block's
+    sums; the phase names ("START" first: before the first marker)."""
     lo, hi = _body(src, kernel)
-    marks = [m for m in MARKER.finditer(src) if lo <= m.start() < hi]
+    marks = list(MARKER.finditer(src))
     names = ["START"] + [m.group(1) for m in marks]
     uniq = list(dict.fromkeys(names))
     n = len(uniq)
-    out = [src[:lo], f"\n    unsigned long long bf_acc[{n}] = {{}};"
-           "\n    unsigned long long bf_last = clock64();"
-           "\n    int bf_cur = 0;"]
-    last = lo
-    for m in marks:
-        out += [src[last : m.end()], f"\n    BF_PHASE({uniq.index(m.group(1))});"]
-        last = m.end()
-    out += [src[last:hi], "\n    BF_PHASE(0);\n    if (threadIdx.x == 0)",
-            f"\n        for (int bf_k = 0; bf_k < {n}; ++bf_k)",
-            f"\n            bf_phase_clock[(size_t)blockIdx.x * {n} + bf_k] = "
-            "bf_acc[bf_k];\n", src[hi:]]
-    text = "".join(out)
-    inc = text.index('#include "common.cuh"') + len('#include "common.cuh"')
-    return text[:inc] + STAMP_HEAD + text[inc:], uniq
+    cuts = sorted([(m.end(), f"\n    BF_PHASE({uniq.index(m.group(1))});")
+                   for m in marks]
+                  + [(lo, f"\n    if (threadIdx.x == 0) {{"
+                          f"\n        for (int bf_k = 0; bf_k < {n}; ++bf_k)"
+                          f" bf_acc[bf_k] = 0;"
+                          f"\n        bf_last = clock64();"
+                          f"\n        bf_cur = 0;\n    }}"),
+                     (hi, "\n    BF_PHASE(0);\n    if (threadIdx.x == 0)"
+                          f"\n        for (int bf_k = 0; bf_k < {n}; ++bf_k)"
+                          f"\n            bf_phase_clock[(size_t)blockIdx.x "
+                          f"* {n} + bf_k] = bf_acc[bf_k];\n")])
+    out, last = [], 0
+    for at, text in cuts:
+        out += [src[last:at], text]
+        last = at
+    text = "".join(out + [src[last:]])
+    inc = list(INCLUDE.finditer(text))[-1].end()  # after the last #include
+    return (text[:inc] + f"\n#define BF_NPHASE {n}" + STAMP_HEAD
+            + text[inc:], uniq)
 
 
-def build(tag: str, text: str, entry: str, argtypes, stamped: bool):
-    """nvcc ``text`` into a library beside the checkout's kernels: (entry
-    point, bf_error_string, phase-buffer setter or None)."""
+def build(tag: str, text: str, entries: dict, stamped: bool):
+    """nvcc ``text`` into a library beside the checkout's kernels: ({name:
+    (entry point, bf_error_string)} of ``entries``, name -> (C entry, its
+    argtypes before the stream), and the phase-buffer setter or None)."""
     from blingfire_tpu_torch import kernels
     from blingfire_tpu_torch.buildutil import build_all, build_dir, source_tag
 
@@ -123,17 +185,28 @@ def build(tag: str, text: str, entry: str, argtypes, stamped: bool):
     build_all([(lib_path, lambda tmp: [kernels.nvcc(), *kernels.NVCC_FLAGS,
                                        "-I", kernels.CSRC, "-o", tmp, src])])
     lib = ctypes.CDLL(lib_path)
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     lib.bf_error_string.restype = ctypes.c_char_p
     lib.bf_error_string.argtypes = [ctypes.c_int]
+    fns = {}
+    for name, (entry, argtypes) in entries.items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fns[name] = (fn, lib.bf_error_string)
     setter = None
     if stamped:
         setter = lib.bf_phase_set
         setter.restype = ctypes.c_int
         setter.argtypes = [ctypes.c_void_p]
-    return fn, lib.bf_error_string, setter
+    return fns, setter
+
+
+def _own(name: str) -> dict:
+    """{name: (C entry, argtypes)} of the checkout's kernel ``name``."""
+    from blingfire_tpu_torch import kernels
+
+    _src, entry, argtypes = kernels.KERNELS[name]
+    return {name: (entry, argtypes)}
 
 
 def _entry(text: str, entry: str) -> str:
@@ -159,21 +232,13 @@ def read_source(path: str, entry: str) -> str:
     return text
 
 
-def _k9_launcher(fn, err):
+def _k9_launcher(fns):
     """call(t, x, init, elen, out) of one build of a K9 source."""
-    from blingfire_tpu_torch import kernels
     from blingfire_tpu_torch.ops import lexer as lexer_ops
 
     def call(t, x, i, e, o):
-        saved = kernels._fns.get("lexer_pass")
-        kernels._fns["lexer_pass"] = (fn, err)
-        try:
+        with swapped(fns):
             return lexer_ops.lexer_pass_packed(t, x, i, e, out=o)
-        finally:
-            if saved is None:
-                kernels._fns.pop("lexer_pass", None)
-            else:
-                kernels._fns["lexer_pass"] = saved
     return call
 
 
@@ -188,8 +253,7 @@ def k9_paths(dev):
     from blingfire_tpu_torch.runtime.lexer_host import (WordPieceTpu,
                                                         WordsTpu, decode_utf8)
 
-    docs = measure.corpus_prefix(testing.zipf_corpus(measure.CORPUS_BYTES),
-                                 measure.CMP_BYTES)
+    docs = measure.corpus_prefix(_corpus(), measure.CMP_BYTES)
     lexers = {
         "words": (WordsTpu(load_bytes(testing.shipped_lexer_bytes("wbd")),
                            device=dev).lex, True),
@@ -216,21 +280,19 @@ def k9_paths(dev):
 def k9_split(sources, dev, results) -> None:
     import torch
 
-    from blingfire_tpu_torch import kernels
     from blingfire_tpu_torch.ops import lexer as lexer_ops
 
-    argt = kernels.KERNELS["lexer_pass"][2]
     built = {}
     for label, path in sources:
         text = read_source(path, "bf_lexer_pass")
         stext, names = instrument(text, "lexer_pass_kernel")
         stamped = None
         if len(names) > 1:  # phase markers: a stamped copy too
-            fn_s, err_s, setter = build(f"k9_{label}_stamped", stext,
-                                        "bf_lexer_pass", argt, True)
-            stamped = (_k9_launcher(fn_s, err_s), setter, names)
-        fn, err, _ = build(f"k9_{label}", text, "bf_lexer_pass", argt, False)
-        built[label] = (_k9_launcher(fn, err), stamped)
+            fns, setter = build(f"k9_{label}_stamped", stext,
+                                _own("lexer_pass"), True)
+            stamped = (_k9_launcher(fns), setter, names)
+        fns, _ = build(f"k9_{label}", text, _own("lexer_pass"), False)
+        built[label] = (_k9_launcher(fns), stamped)
         results[f"k9:{label}"] = {"source": path,
                                   "phases": names if stamped else None,
                                   "paths": {}}
@@ -312,7 +374,7 @@ def k1_rows(dev):
     from blingfire_tpu_torch.runtime import dedup
     from blingfire_tpu_torch.runtime.host import SpTokenizer
 
-    docs = testing.zipf_corpus(measure.CORPUS_BYTES)
+    docs = _corpus()
     gpt2 = load_bytes(testing.gpt2_shaped_model_bytes())
     tok = SpTokenizer(gpt2, max_doc_symbols=128, device=dev.type)
     spm = tok._unit_runner().spm_iw
@@ -412,13 +474,10 @@ def k1_split(sources, dev, results) -> None:
     from blingfire_tpu_torch.ops import bpe as bpe_ops
 
     kernels._load("bpe_walk")
-    own = kernels._fns["bpe_walk"]
     built = {}
     for label, path in sources:
         text = read_source(path, "bf_bpe_walk")
-        fn, err, _ = build(f"k1_{label}", text, "bf_bpe_walk",
-                           kernels.KERNELS["bpe_walk"][2], False)
-        built[label] = (fn, err)
+        built[label] = build(f"k1_{label}", text, _own("bpe_walk"), False)[0]
         results[f"k1:{label}"] = {"source": path, "rows": {}}
     rows = k1_rows(dev)
     for name, t, spm, x, ln, lw, bounded in rows:
@@ -426,9 +485,8 @@ def k1_split(sources, dev, results) -> None:
         LW = bpe_ops._walk_depth(t, lw)
         ovf = t.max_len > LW and not bounded
         want = bpe_ops._walk_plain(t, x, ln, spm, LW, ovf)
-        for label, entry in built.items():
-            kernels._fns["bpe_walk"] = entry
-            try:
+        for label, fns in built.items():
+            with swapped(fns):
                 got = bpe_ops.bpe_walk(t, x, ln, spm, lw=lw, bounded=bounded)
                 torch.cuda.synchronize()
                 measure.check(all(torch.equal(a, b)
@@ -446,8 +504,6 @@ def k1_split(sources, dev, results) -> None:
                     caps[cap] = {"ms": ms,
                                  "device_ms": st[("bpe_walk", "probe")][
                                      "device_ms"]}
-            finally:
-                kernels._fns["bpe_walk"] = own
             ks = sorted(caps)
             lo, hi = ks[0], ks[-1]
             slope = ((caps[hi]["device_ms"] - caps[lo]["device_ms"])
@@ -466,6 +522,238 @@ def k1_split(sources, dev, results) -> None:
     parts = {k: v if k == "turns" else round(v) for k, v in ns.items()}
     measure.log(f"[k1] the checkout's wrapper's host ns a call at {name} "
                 f"{tuple(x.shape)} (1,000 calls a part): {parts}")
+
+
+def k5_rows(dev):
+    """[(rows, mode, tables, x, lengths, lw)]: the xlnet-shaped model's
+    three unit regions of one uncached CMP_BYTES batch in the dense, wide
+    and comb modes, and main-ww's launches (rows of 1,024, the walk at the
+    model's max_len) in the dense mode."""
+    from blingfire_tpu_torch import native, testing
+    from blingfire_tpu_torch.models.loader import load_bytes
+    from blingfire_tpu_torch.ops import bpe as bpe_ops
+    from blingfire_tpu_torch.ops import unigram as uni_ops
+    from blingfire_tpu_torch.runtime import dedup
+    from blingfire_tpu_torch.runtime.host import SpTokenizer
+
+    docs = _corpus()
+    model = load_bytes(testing.xlnet_shaped_model_bytes())
+    tok = SpTokenizer(model, max_doc_symbols=128, device=dev.type)
+    regions = measure.packed_regions(native, tok, docs,
+                                     tok._unit_runner().spm_iw, False,
+                                     tok.seg.charmap, dev)
+    rows = []
+    for mode in measure.UNI_MODES:
+        t = measure.unigram_tables(uni_ops, tok, mode, dev)
+        rows += [(f"region {i}", mode, t, x, ln, lw if bounded else None)
+                 for i, (x, ln, lw, bounded) in enumerate(regions)]
+    wtok = SpTokenizer(model, max_doc_symbols=measure.WIDE_DOC,
+                       device=dev.type)
+    _ub, _w, launches, _ts, _tp = measure.units_np_launches(
+        wtok, measure.corpus_prefix(docs, measure.CMP_BYTES), dedup, bpe_ops,
+        dev)
+    rows += [(f"main-ww launch {j}", "dense", wtok.tables, x, ln, None)
+             for j, (x, ln) in enumerate(launches)]
+    return rows
+
+
+def k5_split(sources, dev, results) -> None:
+    import torch
+
+    from blingfire_tpu_torch import kernels
+    from blingfire_tpu_torch.ops import unigram as uni_ops
+
+    kernels._load("unigram_walk")
+    built = {}
+    for label, path in sources:
+        text = read_source(path, "bf_unigram_walk")
+        built[label] = build(f"k5_{label}", text, _own("unigram_walk"),
+                             False)[0]
+        results[f"k5:{label}"] = {"source": path, "rows": [], "batch": {}}
+    for name, mode, t, x, ln, lw in k5_rows(dev):
+        B, N = x.shape
+        L = uni_ops.walk_depth(t, lw)
+        r = measure.reads()
+        want = uni_ops._walk_plain(t, x, ln, L, reads=r)
+
+        def call():
+            return uni_ops.unigram_walk(t, x, ln, lw=lw)
+
+        for label, fns in built.items():
+            row = {"rows": name, "mode": mode, "B": B, "N": N, "L": L,
+                   "live_lane_steps": r.steps, "lane_steps": B * N * L}
+            with swapped(fns):
+                got = call()
+                torch.cuda.synchronize()
+                measure.check(all(map(torch.equal, got, want)),
+                              f"k5 {label} on {mode} {name} differs from "
+                              f"the plain version")
+                del got
+                row["ms"] = measure.cuda_ms(call, 50)
+                st = measure.new_stats(("unigram_walk",), "probe")
+                measure.profiled_device_ms(call, st)
+                row["device_ms"] = st[("unigram_walk", "probe")]["device_ms"]
+            res = results[f"k5:{label}"]
+            res["rows"].append(row)
+            key = mode if name.startswith("region") else "main-ww"
+            for k, v in row.items():
+                if k.endswith("ms"):
+                    res["batch"].setdefault(key, {}).setdefault(k, 0.0)
+                    res["batch"][key][k] += v
+            measure.log(f"[k5 {label}] {mode} {name}: {B} rows of {N}, L {L}"
+                        f"; live lane-steps {r.steps} of {B * N * L}; "
+                        + ", ".join(f"{k} {v:.5f}" for k, v in row.items()
+                                    if k.endswith("ms")))
+        del want
+    for label in built:
+        measure.log(f"[k5 {label}] a 4 MiB batch (regions summed) and "
+                    f"main-ww: {results[f'k5:{label}']['batch']}")
+
+
+def k7_rows(dev):
+    """[(hybrid, x, init, class_rows)] of the dense pass (K7) and the comb
+    pass (K8): the bert-shaped model's packed rows of one uncached
+    CMP_BYTES batch, as chip_smoke.py's kernels-w packs them."""
+    import torch
+
+    from blingfire_tpu_torch import testing
+    from blingfire_tpu_torch.models.loader import load_bytes
+    from blingfire_tpu_torch.ops import lexer as lexer_ops
+    from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
+
+    model = load_bytes(testing.bert_shaped_model_bytes())
+    hyb = WordPieceHybrid(model, device=dev)
+    saved = lexer_ops.DENSE_MAX_ENTRIES
+    lexer_ops.DENSE_MAX_ENTRIES = -1
+    try:
+        hyb_c = WordPieceHybrid(model, device=dev)
+    finally:
+        lexer_ops.DENSE_MAX_ENTRIES = saved
+    nh, u_syms, u_soff, u_fn = hyb._analyze(
+        measure.corpus_prefix(_corpus(), measure.CMP_BYTES))
+    hyb._rt.BtlWpFree(nh)
+    out = []
+    for h in (hyb, hyb_c):
+        px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+        out.append((h, torch.from_numpy(px).to(dev),
+                    torch.from_numpy(pinit).to(dev), class_rows))
+    return out
+
+
+def _wp_plain(h, x, init, lw: int, r):
+    """(the plain pass's rows, each start's skip target) of hybrid ``h``
+    on rows ``x`` at walk depth ``lw``; ``r`` notes the reads."""
+    from blingfire_tpu_torch.ops import lexer as lexer_ops
+
+    if h._dense is None:
+        fp, fo = lexer_ops._walk_comb_plain(h.tables, x, init, h._r_iw, lw,
+                                            reads=r)
+    else:
+        dnext, ow_perm, _p, n_f, _n = h._dense
+        fp, fo = lexer_ops._walk_dense_plain(h.tables, dnext, ow_perm, x, init,
+                                             h._r_iw, lw, n_f, h._n_iws,
+                                             reads=r)
+    skip = lexer_ops._emit_lanes(h.tables, x, fp, fo, h._l_iw, h._r_iw)[0]
+    return (lexer_ops._emit_plain(h.tables, x, fp, fo, h._l_iw, h._r_iw,
+                                  reads=r), skip)
+
+
+def k7_split(sources, dev, results) -> None:
+    import torch
+
+    from blingfire_tpu_torch import kernels
+    from blingfire_tpu_torch.ops import lexer as lexer_ops
+
+    names = ("wp_subword_dense", "wp_subword_comb")
+    kernels._load(names[0])
+    built = {}
+    for label, path in sources:
+        text = read_source(path, "bf_wp_subword_dense")
+        entries = _own(names[0]) | _own(names[1])
+        fns, _ = build(f"k7_{label}", text, entries, False)
+        stext, phases = instrument(text, "wp_subword_dense_kernel")
+        stamped = None
+        if len(phases) > 1:  # phase markers: a stamped copy too
+            stamped = (*build(f"k7_{label}_stamped", stext, entries, True),
+                       phases)
+        built[label] = (fns, stamped)
+        results[f"k7:{label}"] = {"source": path,
+                                  "phases": phases if stamped else None,
+                                  "classes": [], "batch": {}}
+    for h, x, init, class_rows in k7_rows(dev):
+        name = names[h._dense is None]
+        B, M = x.shape
+        classes = [(lo, hi, lw) for lo, hi, lw in class_rows if hi > lo]
+        plain = []
+        for lo, hi, lw in classes:
+            r = measure.reads()
+            want, skip = _wp_plain(h, x[lo:hi], init[lo:hi], lw, r)
+            hops = lexer_ops.visited_chain(skip, torch.full(
+                (hi - lo,), M, dtype=torch.int32, device=dev)).sum(1).double()
+            plain.append((want, hops, r.steps))
+        want_all = torch.cat([p[0] for p in plain])
+        out = torch.empty((B, M + 2), dtype=torch.int32, device=dev)
+
+        def batch():
+            h._passes(x, init, class_rows, out)
+
+        for label, (fns, stamped) in built.items():
+            res = results[f"k7:{label}"]
+            with swapped(fns):
+                batch()
+                torch.cuda.synchronize()
+                measure.check(torch.equal(out, want_all), f"k7 {label}: "
+                              f"{name} differs from the plain version")
+                st = measure.new_stats((name,), "probe")
+                measure.profiled_device_ms(batch, st)
+                res["batch"][name] = {
+                    "rows": B, "ms": measure.cuda_ms(batch, 50),
+                    "device_ms": st[(name, "probe")]["device_ms"]}
+                measure.log(f"[k7 {label}] {name}: a 4 MiB batch, {B} rows "
+                            f"of {M} over {len(classes)} classes: "
+                            f"{res['batch'][name]}")
+                if name != names[0]:  # K8 runs in the one launch only
+                    continue
+                for (lo, hi, lw), (want, hops, steps) in zip(classes, plain):
+                    oc = out[lo:hi]
+
+                    def one(lo=lo, hi=hi, lw=lw, oc=oc):
+                        h._passes(x[lo:hi], init[lo:hi], [(0, hi - lo, lw)],
+                                  oc)
+
+                    st = measure.new_stats((name,), "probe")
+                    measure.profiled_device_ms(one, st)
+                    row = {"pass": name, "lw": lw, "rows": hi - lo,
+                           "width": M, "ms": measure.cuda_ms(one, 50),
+                           "device_ms": st[(name, "probe")]["device_ms"],
+                           "hops_mean": float(hops.mean()),
+                           "hops_max": float(hops.max()),
+                           "live_lane_steps": steps}
+                    if stamped:
+                        sfns, setter, phases = stamped
+                        clk = torch.zeros((hi - lo, len(phases)),
+                                          dtype=torch.int64, device=dev)
+                        measure.check(setter(clk.data_ptr()) == 0,
+                                      "cudaMemcpyToSymbol of the stamp "
+                                      "buffer failed")
+                        with swapped(sfns):
+                            one()
+                            torch.cuda.synchronize()
+                            measure.check(torch.equal(oc, want),
+                                          f"k7 {label}'s stamped copy "
+                                          f"differs")
+                            clk = clk.cpu().double()
+                            row["ms_stamped"] = measure.cuda_ms(one, 10)
+                        # thread 0 of a block stamps its own row: the rows
+                        # stamped are the blocks
+                        tot = clk.sum(0)
+                        n = int((clk != 0).any(1).sum())
+                        row["share"] = {p: float(c / tot.sum())
+                                        for p, c in zip(phases, tot)}
+                        row["cycles_a_row"] = {p: float(c) / n
+                                               for p, c in zip(phases, tot)}
+                    res["classes"].append(row)
+                    measure.log(f"[k7 {label}] " + json.dumps(row))
 
 
 def main() -> int:
@@ -488,26 +776,31 @@ def main() -> int:
     measure.log(smi)
     args = sys.argv[1:]
     out_path = os.path.join(build_dir(), "phase_split.json")
-    srcs = {"k9": [], "k1": []}
+    own = {"k9": "lexer_pass.cu", "k1": "bpe_walk.cu",
+           "k5": "unigram_walk.cu", "k7": "wp_subword.cu"}
+    splits = {"k9": k9_split, "k1": k1_split, "k5": k5_split,
+              "k7": k7_split}
+    srcs = {k: [] for k in own}
+    only = list(own)
     while args:
         a = args.pop(0)
         if a == "--out":
             out_path = args.pop(0)
+        elif a == "--only":
+            only = args.pop(0).split(",")
         else:
             k, _c, rest = a.partition(":")
             label, eq, path = rest.partition("=")
             if not eq or "/" in label:  # no label
                 label, path = os.path.basename(rest), rest
             srcs[k].append((label, path))
-    srcs["k9"] = srcs["k9"] or [("checkout", os.path.join(
-        kernels.CSRC, "lexer_pass.cu"))]
-    srcs["k1"] = srcs["k1"] or [("checkout", os.path.join(
-        kernels.CSRC, "bpe_walk.cu"))]
     dev = torch.device("cuda")
     results = {}
     t0 = time.perf_counter()
-    k9_split(srcs["k9"], dev, results)
-    k1_split(srcs["k1"], dev, results)
+    for k in only:
+        splits[k](srcs[k] or [("checkout", os.path.join(kernels.CSRC,
+                                                        own[k]))],
+                  dev, results)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"card": smi, "results": results}, f, indent=1)

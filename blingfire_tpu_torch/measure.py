@@ -71,14 +71,15 @@ def profiled_device_ms(fn, stats, reps: int = 5) -> None:
     the profile holds a record of, and the launches made (the launch
     counts' rise over the profile); fn launches every kernel of
     ``stats``.  The profiler drops some records (seen on the H100 for K10,
-    K5 and K7, up to all of a kernel's): a kernel short of records is
-    profiled again, up to twice, and keeps its most complete profile; the
-    phase fails when a kernel has no record at all."""
+    K5 and K7, up to all of a kernel's, and late in a long process whole
+    profiles): a kernel short of records is profiled again, up to four
+    times, and keeps its most complete profile; the phase fails when a
+    kernel has no record at all."""
     from blingfire_tpu_torch import kernels
 
     todo = list(stats)
     best = {}  # key -> (records, launches, device ms)
-    for attempt in range(3):
+    for attempt in range(5):
         before = collections.Counter(kernels.launches)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # a kernel of no interest and a pause first: the profiler has
@@ -89,6 +90,7 @@ def profiled_device_ms(fn, stats, reps: int = 5) -> None:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.2)  # and before it stops: whole profiles were lost
         launched = collections.Counter(kernels.launches) - before
         per_name = collections.Counter()  # records of each name
         us = collections.Counter()
@@ -157,6 +159,26 @@ def packed_regions(native, tok, docs, spm_iw, raw_bytes: bool, charmap, dev):
               (nu.split_rows1, nu.split_rows, 16, True),
               (nu.split_rows, R, 16, False)]
     return [(xd[lo:hi], ld[lo:hi], lw, b) for lo, hi, lw, b in bounds if hi > lo]
+
+
+UNI_MODES = ("dense", "wide", "comb")
+
+
+def unigram_tables(uni_ops, tok, mode: str, dev):
+    """The unigram tables of ``tok``'s model in table mode ``mode``, forced
+    through the port's module constants."""
+    saved = (uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL)
+    uni_ops._DENSE_MAX_ENTRIES = 0 if mode != "dense" else saved[0]
+    uni_ops._WIDE_OWNER_SENTINEL = 0 if mode == "comb" else saved[1]
+    try:
+        tables = uni_ops.make_device_tables(
+            tok.comb, tok.seg.i2info_ids, tok.seg.i2info_scores,
+            max_len=tok.max_token_len, id_offset=tok.seg.id_offset,
+            device=dev)
+    finally:
+        uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL = saved
+    check(tables.mode == UNI_MODES.index(mode), f"{mode} mode not taken")
+    return tables
 
 
 def units_np_launches(tok, sub, dedup, bpe_ops, dev):

@@ -23,7 +23,9 @@ Two passes, each beside its plain PyTorch version:
   ``wp_subword_pass`` (K8, same source) walks the comb table, used when
   :func:`make_dense_sub` declines the dense table, which it otherwise
   scatters on the card with K3 (``ops/bpe.py::scatter_trie``, the
-  computation of ``_scatter_dense``).
+  computation of ``_scatter_dense``).  Either takes the rows of both of
+  the hybrid's length classes in one launch, each at its own walk depth,
+  and its visited starts are those of :func:`visited_chain`.
 
 Every comb lookup here takes no transition when ``base[s] + c`` falls
 outside the slot array (:func:`comb_lookup`); the JAX package clamps it
@@ -314,9 +316,11 @@ def _walk_comb_plain(tables: LexerDeviceTables, x, init, r_iw: int, lw: int,
     return fin_pos, fin_ow
 
 
-def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
+def _emit_lanes(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
                 r_iw: int, reads=None):
-    """The SCAN + EMIT tail, _wp_emit (lexer.py:295-350): (B, M + 2)."""
+    """The action gathers of _wp_emit (lexer.py:303-319): (skip, cand,
+    lane), each (B, M): every start's skip target, whether it emits when
+    visited, and its packed lane."""
     B, M = x.shape
     pos = torch.arange(M, dtype=torch.int32, device=x.device)
     is_l = x == l_iw
@@ -336,12 +340,21 @@ def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
     has = fin_pos >= 0
     skip_to = torch.where(has, torch.maximum(from_orig, fpos_orig - right),
                           from_orig)
-    # the visited scan, sequential in the JAX package (lexer.py:298-302)
-    vis = visited_chain(skip_to, torch.full((B,), M, dtype=torch.int32,
-                                            device=x.device))
-    emit = vis & valid & has & ((tag != 0) | (fn >= 0))
     lane = ((tag + 1) | (from2 << 17) | (to2 << 24)
             | ((fn >= 0).to(torch.int32) << 31))
+    return skip_to, valid & has & ((tag != 0) | (fn >= 0)), lane
+
+
+def _emit_plain(tables: LexerDeviceTables, x, fin_pos, fin_ow, l_iw: int,
+                r_iw: int, reads=None):
+    """The SCAN + EMIT tail, _wp_emit (lexer.py:295-350): (B, M + 2)."""
+    B, M = x.shape
+    pos = torch.arange(M, dtype=torch.int32, device=x.device)
+    skip_to, cand, lane = _emit_lanes(tables, x, fin_pos, fin_ow, l_iw, r_iw,
+                                      reads)
+    # the visited scan, sequential in the JAX package (lexer.py:298-302)
+    emit = cand & visited_chain(skip_to, torch.full((B,), M, dtype=torch.int32,
+                                                    device=x.device))
     # left compaction: stable order by (emitted ? pos : MAX)
     key = torch.where(emit, pos, INT32_MAX)
     skey, order = torch.sort(key, dim=1, stable=True)
@@ -502,12 +515,14 @@ def _pass_comb_plain(tables, x, init, l_iw, r_iw, lw, reads=None):
 # ---------------------------------------------------------------- wrappers
 
 
-def _check_rows(tables, x, init, lw, out):
+def _check_rows(tables, x, init, lw, tail, out):
     B, M = x.shape
     if not 1 <= M <= MAX_ROW:
         raise ValueError(f"rows of 1..{MAX_ROW} lanes only, got {M}")
-    if not 0 <= lw <= 4096:
-        raise ValueError(f"walk depth {lw} out of range")
+    if not (0 <= lw <= 4096 and 0 <= tail[1] <= 4096):
+        raise ValueError(f"walk depth {lw} or {tail[1]} out of range")
+    if not 0 <= tail[0] <= B:
+        raise ValueError(f"the second class starts at row {tail[0]} of {B}")
     if tables.act_right.numel() < 1:
         raise ValueError("the grammar has no actions")
     kernels.check(x, torch.int32, (B, M), "x")
@@ -525,24 +540,40 @@ def _plain_into(res, out):
     return out
 
 
+def _by_class(plain, x, init, lw: int, tail):
+    """The plain pass ``plain(x, init, lw)`` of rows of up to two length
+    classes: rows from ``tail[0]`` on walk ``tail[1]`` steps."""
+    if tail is None:
+        return plain(x, init, lw)
+    s = tail[0]
+    return torch.cat([plain(x[:s], init[:s], lw),
+                      plain(x[s:], init[s:], tail[1])])
+
+
 def wp_subword_pass_dense(tables: LexerDeviceTables, dnext, ow_perm,
                           x: torch.Tensor, init_lanes: torch.Tensor,
                           l_iw: int, r_iw: int, lw: int, n_f: int, n_a: int,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
+                          out: torch.Tensor | None = None,
+                          tail: tuple[int, int] | None = None) -> torch.Tensor:
     """The sub-token pass with the one-gather dense walk (K7).
 
     x: int32 (B, M) packed ``[L w R]`` unit rows, -1 padding; init_lanes:
-    int32 (B, M) PERMUTED initial state of each lane's unit.  Returns (or
-    writes into ``out``) int32 (B, M + 2): left-compacted lanes, the match
-    count, a zero column.  Replaces lexer.py::wp_subword_pass_dense."""
+    int32 (B, M) PERMUTED initial state of each lane's unit.  Every row
+    walks ``lw`` steps at most, or, with ``tail = (row, lw_tail)``, the rows
+    from ``row`` on (a second length class) ``lw_tail``: one launch for
+    both.  Returns (or writes into ``out``) int32 (B, M + 2): left-compacted
+    lanes, the match count, a zero column.  Replaces
+    lexer.py::wp_subword_pass_dense, called once a class."""
     if not kernels.on_card(x):
-        return _plain_into(_pass_dense_plain(
-            tables, dnext, ow_perm, x, init_lanes, l_iw, r_iw, lw, n_f, n_a),
-            out)
-    out = _check_rows(tables, x, init_lanes, lw, out)
+        return _plain_into(_by_class(
+            lambda xs, ins, depth: _pass_dense_plain(
+                tables, dnext, ow_perm, xs, ins, l_iw, r_iw, depth, n_f, n_a),
+            x, init_lanes, lw, tail), out)
+    B, M = x.shape
+    tail = tail or (B, lw)
+    out = _check_rows(tables, x, init_lanes, lw, tail, out)
     kernels.check(dnext, torch.int32, (dnext.numel(),), "dnext")
     kernels.check(ow_perm, torch.int32, (ow_perm.numel(),), "ow_perm")
-    B, M = x.shape
     if B:
         kernels.launch(
             "wp_subword_dense", x.device,
@@ -550,22 +581,27 @@ def wp_subword_pass_dense(tables: LexerDeviceTables, dnext, ow_perm,
             ow_perm.numel(), n_f, n_a, tables.act_right.data_ptr(),
             tables.act_tag.data_ptr(), tables.act_fn.data_ptr(),
             tables.act_right.numel(), x.data_ptr(), init_lanes.data_ptr(),
-            B, M, l_iw, r_iw, lw, tables.max_token_length, out.data_ptr(),
+            B, M, l_iw, r_iw, lw, tail[0], tail[1], tables.max_token_length,
+            out.data_ptr(),
         )
     return out
 
 
 def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
                     init_lanes: torch.Tensor, l_iw: int, r_iw: int, lw: int,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    tail: tuple[int, int] | None = None) -> torch.Tensor:
     """The sub-token pass with the comb walk (K8): the same contract as
     :func:`wp_subword_pass_dense`, with init_lanes in the comb's own state
     numbering.  Replaces lexer.py::wp_subword_pass."""
     if not kernels.on_card(x):
-        return _plain_into(_pass_comb_plain(tables, x, init_lanes, l_iw, r_iw,
-                                            lw), out)
-    out = _check_rows(tables, x, init_lanes, lw, out)
+        return _plain_into(_by_class(
+            lambda xs, ins, depth: _pass_comb_plain(
+                tables, xs, ins, l_iw, r_iw, depth),
+            x, init_lanes, lw, tail), out)
     B, M = x.shape
+    tail = tail or (B, lw)
+    out = _check_rows(tables, x, init_lanes, lw, tail, out)
     if B:
         kernels.launch(
             "wp_subword_comb", x.device,
@@ -575,7 +611,7 @@ def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
             tables.act_right.data_ptr(), tables.act_tag.data_ptr(),
             tables.act_fn.data_ptr(), tables.act_right.numel(),
             x.data_ptr(), init_lanes.data_ptr(), B, M, l_iw, r_iw, lw,
-            tables.max_token_length, out.data_ptr(),
+            tail[0], tail[1], tables.max_token_length, out.data_ptr(),
         )
     return out
 

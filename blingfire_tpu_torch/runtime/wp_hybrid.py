@@ -12,8 +12,8 @@ Division of labour, as in the JAX package:
         WpUnitCache);
   card  the sub-token pass over the UNIQUE words only, packed densely with
         their own anchors into 128-lane rows (ops/lexer.py: K7, or K8 when
-        the dense table is declined), one launch per unit-length class and
-        one device-to-host copy per batch;
+        the dense table is declined), one launch over both unit-length
+        classes and one device-to-host copy per batch;
   C++   the per-unit coverage check and the flat per-document ids
         (runtime.cpp::BtlWpStitch); documents it cannot serve (a word over
         MAX_UNIT symbols, a nested sub-function) go to the native
@@ -27,9 +27,10 @@ lexer that serves any WordPiece model (the JAX package's api.py:125-128
 fallback).  The TPU
 package's fixed row buckets, background warm-up and transfer groups
 (``warm``, ``warm_all``, ``big_ready``, ``BIG_BUCKET``, ``GROUP_CHUNKS``)
-avoided XLA recompiles; nothing here compiles per shape, so each length
-class is one launch over its exact row count, and the output rows keep
-their packed order, so the stitch's row map is the identity.
+avoided XLA recompiles; nothing here compiles per shape, so a batch is one
+launch over its exact row count, each length class at its own walk depth,
+and the output rows keep their packed order, so the stitch's row map is the
+identity.
 """
 
 from __future__ import annotations
@@ -208,14 +209,26 @@ class WordPieceHybrid:
         """Cross-batch word cache handle (runtime.cpp::WpCache)."""
         return WpUnitCache(self._rt)
 
-    def _device_pass(self, bx, bi, lw: int, out=None):
+    def _device_pass(self, bx, bi, lw: int, out=None, tail=None):
         if self._dense is not None:
             dnext, ow_perm, _perm, n_f, _n_reach = self._dense
             return lexer_ops.wp_subword_pass_dense(
                 self.tables, dnext, ow_perm, bx, bi, self._l_iw, self._r_iw,
-                lw, n_f, self._n_iws, out=out)
+                lw, n_f, self._n_iws, out=out, tail=tail)
         return lexer_ops.wp_subword_pass(
-            self.tables, bx, bi, self._l_iw, self._r_iw, lw, out=out)
+            self.tables, bx, bi, self._l_iw, self._r_iw, lw, out=out,
+            tail=tail)
+
+    def _passes(self, xd, idv, class_rows, out) -> None:
+        """The device pass of a batch's packed rows into ``out``: one launch
+        over both length classes (class_rows as _pack gives them, at most
+        two, the first from row 0), each at its own walk depth."""
+        (lo, hi, lw), *rest = class_rows
+        if lo != 0 or len(rest) > 1 or (rest and rest[0][0] != hi):
+            raise ValueError(f"not one or two classes from row 0: "
+                             f"{class_rows}")
+        self._device_pass(xd, idv, lw, out=out,
+                          tail=(hi, rest[0][2]) if rest else None)
 
     def _analyze(self, docs_b: list[bytes], cache=None):
         """Native level-0 scan and intern of a batch: (handle, u_syms,
@@ -310,12 +323,8 @@ class WordPieceHybrid:
         dev = self.device
         out = torch.empty((R, ROW_W + 2), dtype=torch.int32, device=dev)
         if R:
-            xd = torch.from_numpy(px).to(dev)
-            idv = torch.from_numpy(pinit).to(dev)
-            for lo, hi, lw in class_rows:
-                if hi > lo:
-                    self._device_pass(xd[lo:hi], idv[lo:hi], lw,
-                                      out=out[lo:hi])
+            self._passes(torch.from_numpy(px).to(dev),
+                         torch.from_numpy(pinit).to(dev), class_rows, out)
         if dev.type == "cuda":
             host = torch.empty((R, ROW_W + 2), dtype=torch.int32,
                                pin_memory=True)

@@ -517,6 +517,61 @@ def unigram_edge_rows():
     return blob, x, lengths
 
 
+# walk depths of unigram_deep_rows: one, and each side of K5's 32-depth
+# chunks (kernels/csrc/unigram_walk.cu)
+DEEP_DEPTHS = (1, 31, 32, 33, 64)
+DEEP_MAX_LEN = 70
+
+
+def unigram_deep_rows(width: int = 130, seed: int = 0):
+    """(model image, x_iw int32 (R, width), lengths int32 (R,)) for K5's
+    depth chunks: a tiny seeded unigram model whose pieces run to
+    DEEP_MAX_LEN symbols ((ab)^k for every k up to 35, runs of c of 31 to
+    70, seeded pieces of 2 to 40 symbols over a, b, c, d) and rows that
+    walk them to their ends: (ab)^k and c runs across the 32-depth chunks,
+    seeded mixtures, unknown symbols (-1), an empty row, a length past the
+    row and seeded symbols past the length, which the walk still reads.
+    The default width is not a multiple of a tile of 128 starts, nor, at
+    odd depths, of a 16-byte store."""
+    rng = np.random.default_rng(seed + 13)
+    S, a, b, c, d = SPM, 0x61, 0x62, 0x63, 0x64
+    pieces = {(v,) for v in (S, a, b, c, d)}
+    pieces |= {(a, b) * k for k in range(1, 36)}
+    pieces |= {(S,) + (a, b) * k for k in (1, 15, 16, 17, 32)}
+    pieces |= {(c,) * n for n in (2, 31, 32, 33, 63, 64, 65, DEEP_MAX_LEN)}
+    for n in rng.integers(2, 41, 60):
+        pieces.add(tuple(int(v) for v in rng.choice([a, b, c, d], n)))
+    pieces = sorted(pieces)
+    score = -(1.0 + rng.random(len(pieces)) * 3.0) * np.array(
+        [len(p) for p in pieces])
+    score = np.round(score * 4) / 4  # a few exact ties
+    blob = compile_dict_model(DictModelSpec(entries=[
+        VocabEntry(p, 3 + i, float(s)) for i, (p, s) in
+        enumerate(zip(pieces, score))]))
+    alphabet = sorted({v for p in pieces for v in p})
+    S, a, b, c, d = (alphabet.index(v) for v in (S, a, b, c, d))
+    W = width
+    mix = [int(v) for v in rng.choice([a, b, c, d], W)]
+    pats = [
+        ([S] + [a, b] * 40, W),
+        ([c] * 100 + [a, b] * 20, W),
+        ([a, b] * 16 + [c] * 33 + [a, b] * 33, W - 3),
+        (mix, W),
+        ([c] * 64 + [-1] + [c] * 70, W),
+        ([], 0),
+        ([S, a, b] * 5, W + 5),  # past the row: nothing is emitted
+        ([d, -1, c, c] * 10, 17),
+        ([-1] * W, W),
+    ]
+    x = rng.integers(-1, len(alphabet), (len(pats), W)).astype(np.int32)
+    lengths = np.zeros(len(pats), np.int32)
+    for i, (r, n) in enumerate(pats):
+        r = r[:W]
+        x[i, : len(r)] = r
+        lengths[i] = n
+    return blob, x, lengths
+
+
 # (row width N, walk cap lw) of unigram_lane_edge_rows: every N at least
 # once, and L = min(lw, LANE_MAX_LEN) in {1, 3, 8, 9, 15, 16, 17, 33, 40}
 # (the depths past 32 at the narrowest width past a tile: JAX's compile

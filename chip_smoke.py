@@ -32,22 +32,27 @@ Phases, each of which must pass (any failure exits non-zero):
               (forced through the port's module constants); tolerance 0;
               K6's rows a launch, depth L, lane group G and ns a DP step
               (events over the row width); K4's host time a call by part;
+              then K5 in the three modes on testing.unigram_deep_rows at
+              the depths on each side of its 32-depth chunks (1, 31, 32,
+              33, 64) and at max_len 70;
   9. model-w  a seeded bert-shaped WordPiece model (28,996 entries, [UNK] =
               100) compiled by the port's copy of the lex compiler; its
               automaton's size;
  10. main-w   the WordPiece hybrid as a user drives it:
               WordPieceHybrid(model, device="cuda") (A, dense sub-grammar,
               pack-safety) then encode_corpus_flat(docs, unk_id=100) over
-              the same corpus: K3 and K7 must launch; sampled documents
-              must equal the scalar LexerOracleApi;
+              the same corpus: K3 and K7 must launch, K7 at most once a
+              batch; sampled documents must equal the scalar
+              LexerOracleApi;
  11. main-wc  the same entry point with the dense table declined (the
               port's DENSE_MAX_ENTRIES forced below it) over the corpus's
               first 4 MiB, the path of a sub-grammar too large for it: K8
               must launch, and the ids equal main-w's;
  12. kernels-w K7 and K8 against their plain versions on the packed rows of
               both unit-length classes (walk depth 18 and 42) of one
-              uncached 4 MiB batch, and K3 on the dense sub-grammar's CSR;
-              tolerance 0;
+              uncached 4 MiB batch, each kernel launched once over both
+              classes as dispatch launches it, and K3 on the dense
+              sub-grammar's CSR; tolerance 0;
  13. model-l  the shipped pattern-lexer models of the package, wbd
               (TextToWords) and sbd (TextToSentences): their automata's
               size, functions, and the state that owns slot 0 of the comb
@@ -171,17 +176,17 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from blingfire_tpu_torch.measure import (CMP_BYTES, CORPUS_BYTES, WIDE_DOC,
-                                         check, corpus_prefix, cuda_ms, log,
-                                         new_stats, packed_regions,
-                                         profiled_device_ms, reads,
-                                         self_device_us, units_np_launches)
+                                         UNI_MODES, check, corpus_prefix,
+                                         cuda_ms, log, new_stats,
+                                         packed_regions, profiled_device_ms,
+                                         reads, self_device_us,
+                                         unigram_tables, units_np_launches)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 peak, taken for 32-bit scalar ops
 ORACLE_DOCS = 500  # documents checked against the scalar oracle
 DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
-UNI_MODES = ("dense", "wide", "comb")
 CLASSIC_DOC = 1024  # the classic path's window: K2's widest row
 BPE_MODES = {"comb": 3000, "trie": 420}  # table mode -> CJK characters
 # kernel -> (source, the TPU kernel it replaces on each path)
@@ -525,6 +530,35 @@ def pack_vs_plain(s, dedup, ids, st, cnt, fb) -> None:
     s["ops"] += B * N * 3
 
 
+def unigram_deep_vs_plain(uni_ops, dev) -> None:
+    """K5 against its plain version at the walk depths on each side of its
+    32-depth chunks and at the model's max_len, on testing.unigram_deep_rows
+    (pieces of up to 70 symbols) at row widths 128 and 130, in the three
+    table modes; tolerance 0."""
+    from blingfire_tpu_torch import testing
+    from blingfire_tpu_torch.models.loader import load_bytes
+    from blingfire_tpu_torch.runtime.host import SpTokenizer
+
+    for width in (128, 130):
+        blob, x, ln = testing.unigram_deep_rows(width)
+        tok = SpTokenizer(load_bytes(blob), max_doc_symbols=128, device="cuda")
+        x, ln = torch.from_numpy(x).to(dev), torch.from_numpy(ln).to(dev)
+        for mode in UNI_MODES:
+            t = unigram_tables(uni_ops, tok, mode, dev)
+            res = []
+            for lw in testing.DEEP_DEPTHS + (None,):
+                L = uni_ops.walk_depth(t, lw)
+                got = uni_ops.unigram_walk(t, x, ln, lw=lw)
+                want = uni_ops._walk_plain(t, x, ln, L)
+                torch.cuda.synchronize()
+                check(max_abs_err(zip(got, want)) == 0,
+                      f"kernels-u: K5 {mode} at depth {L}, width {width}, "
+                      f"differs from its plain version")
+                res.append((L, int((got[0] >= 0).sum())))
+            log(f"[kernels-u] K5 {mode} on {x.shape[0]} deep rows of "
+                f"{width}: equal to the plain version at (depth, keys) {res}")
+
+
 def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
     """Phase 8: K5 and K6 (and K4 on their output) against their plain
     versions in every region and table mode; the stats of the main path's
@@ -533,21 +567,11 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
                              False, tok.seg.charmap, dev)
     log(f"[kernels-u] {sum(len(r[0]) for r in regions)} packed rows: regions "
         f"{[(len(x), lw, b) for x, _l, lw, b in regions]}")
-    seg = tok.seg
-    saved = (uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL)
     fbs = [torch.zeros(len(x), dtype=torch.bool, device=dev)
            for x, *_rest in regions]
     by_mode = {}
     for mode in UNI_MODES:
-        uni_ops._DENSE_MAX_ENTRIES = 0 if mode != "dense" else saved[0]
-        uni_ops._WIDE_OWNER_SENTINEL = 0 if mode == "comb" else saved[1]
-        try:
-            tables = uni_ops.make_device_tables(
-                tok.comb, seg.i2info_ids, seg.i2info_scores,
-                max_len=tok.max_token_len, id_offset=seg.id_offset, device=dev)
-        finally:
-            uni_ops._DENSE_MAX_ENTRIES, uni_ops._WIDE_OWNER_SENTINEL = saved
-        check(tables.mode == UNI_MODES.index(mode), f"{mode} mode not taken")
+        tables = unigram_tables(uni_ops, tok, mode, dev)
         stats = new_stats(("unigram_walk", "unigram_viterbi",
                            "pack_out_compact"), "unigram")
         for x, ln, lw, bounded in regions:
@@ -584,6 +608,7 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
                 f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
                 f"{bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
         by_mode[mode] = stats
+    unigram_deep_vs_plain(uni_ops, dev)
     stats = by_mode["dense"]
     for k, s in stats.items():
         s["err"] = max(by_mode[m][k]["err"] for m in UNI_MODES)
@@ -591,8 +616,12 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
 
 
 def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
-    """Phase 12: K7 and K8 against their plain versions on both length
-    classes of one uncached 4 MiB batch, and K3 on the dense sub-grammar."""
+    """Phase 12: K7 and K8 against their plain versions on the packed rows
+    of both length classes of one uncached 4 MiB batch, each launched once
+    over both classes as WordPieceHybrid.dispatch launches it (the plain
+    version runs once a class), and K3 on the dense sub-grammar."""
+    from blingfire_tpu_torch import kernels
+
     nh, u_syms, u_soff, u_fn = hyb._analyze(corpus_prefix(docs, CMP_BYTES))
     hyb._rt.BtlWpFree(nh)
     n_units = len(u_soff) - 1
@@ -607,46 +636,52 @@ def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
         f"{[(hi - lo, lw) for lo, hi, lw in runs[0][4]]}")
     stats = new_stats(("wp_subword_dense", "wp_subword_comb"), "wordpiece")
 
-    def plain(h, x, init, lw, r=None):
-        if h._dense is None:
-            return lexer_ops._pass_comb_plain(h.tables, x, init, h._l_iw,
-                                              h._r_iw, lw, reads=r)
-        dnext, ow_perm, _p, n_f, _n = h._dense
-        return lexer_ops._pass_dense_plain(h.tables, dnext, ow_perm, x, init,
-                                           h._l_iw, h._r_iw, lw, n_f,
-                                           h._n_iws, reads=r)
+    def plain(h, x, init, class_rows, r=None):
+        out = []
+        for lo, hi, lw in class_rows:
+            xc, ic = x[lo:hi], init[lo:hi]
+            if h._dense is None:
+                out.append(lexer_ops._pass_comb_plain(
+                    h.tables, xc, ic, h._l_iw, h._r_iw, lw, reads=r))
+            else:
+                dnext, ow_perm, _p, n_f, _n = h._dense
+                out.append(lexer_ops._pass_dense_plain(
+                    h.tables, dnext, ow_perm, xc, ic, h._l_iw, h._r_iw, lw,
+                    n_f, h._n_iws, reads=r))
+        return torch.cat(out)
 
     dev_rows = {}
     for h, name, px, pinit, class_rows in runs:
         s = stats[(name, "wordpiece")]
-        for lo, hi, lw in class_rows:
-            if hi <= lo:
-                continue
-            x = torch.from_numpy(px[lo:hi]).to(dev)
-            init = torch.from_numpy(pinit[lo:hi]).to(dev)
-            dev_rows.setdefault(name, []).append((x, init, lw))
-            B, M = x.shape
-            k = h._device_pass(x, init, lw)
-            r = reads()
-            p = plain(h, x, init, lw, r)
-            torch.cuda.synchronize()
-            s["err"] = max(s["err"], max_abs_err([(k, p)]))
-            k_ms = cuda_ms(lambda: h._device_pass(x, init, lw), 50)
-            s["ms"] += k_ms
-            s["plain_ms"] += cuda_ms(lambda: plain(h, x, init, lw), 2, warm=1)
-            # rows in (x, init) and out, and each table entry read once
-            s["bytes"] += B * M * 8 + B * (M + 2) * 4 + r.table_bytes()
-            s["ops"] += r.steps + B * M
-            log(f"[kernels-w] {name} class rows={B} lw={lw}: equal to the "
-                f"plain version; {k_ms:.5f} ms per launch; matches "
-                f"{int(k[:, M].sum())}; live lane-steps {r.steps}, table "
-                f"bytes read {r.table_bytes()}, actions reached "
-                f"{r.entries('act_tag')}")
+        x = torch.from_numpy(px).to(dev)
+        init = torch.from_numpy(pinit).to(dev)
+        B, M = x.shape
+        out = torch.empty((B, M + 2), dtype=torch.int32, device=dev)
+        dev_rows[name] = (h, (x, init, class_rows, out))
+        n = kernels.launches[name]
+        h._passes(x, init, class_rows, out)
+        check(kernels.launches[name] == n + 1,
+              f"{name}: not one launch over both length classes")
+        r = reads()
+        p = plain(h, x, init, class_rows, r)
+        torch.cuda.synchronize()
+        s["err"] = max_abs_err([(out, p)])
+        s["ms"] = cuda_ms(lambda: h._passes(x, init, class_rows, out), 50)
+        s["plain_ms"] = cuda_ms(lambda: plain(h, x, init, class_rows), 2,
+                                warm=1)
+        # rows in (x, init) and out, and each table entry read once
+        s["bytes"] = B * M * 8 + B * (M + 2) * 4 + r.table_bytes()
+        s["ops"] = r.steps + B * M
+        log(f"[kernels-w] {name}: one launch over {B} rows of both classes "
+            f"{[(hi - lo, lw) for lo, hi, lw in class_rows]}: equal to the "
+            f"plain version a class; {s['ms']:.5f} ms; matches "
+            f"{int(out[:, M].sum())}; live lane-steps {r.steps}, table "
+            f"bytes read {r.table_bytes()}, actions reached "
+            f"{r.entries('act_tag')}")
 
     def once():
-        for h, name, *_rest in runs:
-            for x, init, lw in dev_rows[name]:
-                h._device_pass(x, init, lw)
+        for h, args in dev_rows.values():
+            h._passes(*args)
 
     profiled_device_ms(once, stats)
     # K3 at the dense sub-grammar's shape: its CSR from the host BFS
@@ -1533,6 +1568,9 @@ def main() -> int:
     for name in WP_MAIN:
         check(main_w["launches"].get(name, 0) > 0,
               f"kernel {name} never launched on the WordPiece path")
+    check(main_w["launches"]["wp_subword_dense"]
+          <= main_w["counters"].batches,
+          "K7 launched more than once in a batch")
     ids, bounds = main_w["ids"], main_w["bounds"]
     check(ids.min() >= 0 and ids.max() < testing.BERT_VOCAB,
           f"ids out of range: {ids.min()}..{ids.max()}")

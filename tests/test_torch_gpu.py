@@ -5,7 +5,9 @@ region and table mode, K6 also on testing.unigram_lane_edge_rows (every
 lane-group shape, L past a warp) and on random arcs at the widths where
 its launcher widens a group, K4 pack_out_compact at widths 1 to 1,024
 (aligned or not), the WordPiece pass (K7 dense, K8 comb, K3 on the
-dense sub-grammar), and K9 lexer_pass of the pattern lexer on the shipped
+dense sub-grammar; K7 and K8 also in one launch over both length classes),
+K5 at the depths around its 32-depth chunks (testing.unigram_deep_rows),
+and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models (also at 4,098 and 16,386 lanes), and K10 hyph_segment on syllab-shaped W2H models; K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
 takes a transition that the automaton does not have; K11 pack_out (at
@@ -869,3 +871,60 @@ def test_wide_window_on_the_card_matches_cpu(kind):
     cids, cbounds = cpu.encode_corpus_flat(docs, batch_docs=16)
     assert (ids == cids).all() and (bounds == cbounds).all()
     assert gpu.encode_batch(docs) == cpu.encode_batch(docs)
+
+
+@pytest.mark.parametrize("width", [128, 130])
+@pytest.mark.parametrize("mode", MODES)
+def test_unigram_walk_kernel_at_chunk_depths(monkeypatch, mode, width):
+    """K5 on testing.unigram_deep_rows at the depths on each side of its
+    32-depth chunks and at the model's max_len (70): a row width of whole
+    16-byte spans (128) and one that is not (130, also a ragged second
+    tile of starts)."""
+    _need_cuda()
+    blob, x, ln = testing.unigram_deep_rows(width)
+    _force_mode(monkeypatch, mode)
+    t = _uni_tables(blob, testing.DEEP_MAX_LEN)
+    assert t.mode == MODES.index(mode)
+    x, ln = torch.from_numpy(x).cuda(), torch.from_numpy(ln).cuda()
+    for lw in testing.DEEP_DEPTHS + (None,):
+        n = kernels.launches["unigram_walk"]
+        got = unigram.unigram_walk(t, x, ln, lw=lw)
+        assert kernels.launches["unigram_walk"] == n + 1
+        want = unigram._walk_plain(t, x, ln, unigram.walk_depth(t, lw))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), lw
+
+
+@pytest.mark.parametrize("depths", [(18, 42), (42, 1)],
+                         ids=["dispatch", "short_tail"])
+@pytest.mark.parametrize("comb", [False, True], ids=["dense", "comb"])
+def test_wp_one_launch_matches_plain_by_class(comb, depths):
+    """K7 (K8) in one launch over the packed rows of both length classes,
+    each at its walk depth, against the plain pass run once a class: at the
+    dispatch's depths, and with the second class cut to one step."""
+    _need_cuda()
+    h = _wp(comb, "cuda")
+    nh, u_syms, u_soff, u_fn = h._analyze(_wp_docs())
+    h._rt.BtlWpFree(nh)
+    px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+    class_rows = [(lo, hi, lw) for (lo, hi, _lw), lw in zip(class_rows,
+                                                             depths)]
+    xd, idv = torch.from_numpy(px).cuda(), torch.from_numpy(pinit).cuda()
+    name = "wp_subword_comb" if comb else "wp_subword_dense"
+    out = torch.full((len(px), px.shape[1] + 2), -7, dtype=torch.int32,
+                     device="cuda")
+    n = kernels.launches[name]
+    h._passes(xd, idv, class_rows, out)
+    assert kernels.launches[name] == n + 1
+    want = []
+    for lo, hi, lw in class_rows:
+        x, init = xd[lo:hi], idv[lo:hi]
+        if comb:
+            want.append(lexer._pass_comb_plain(h.tables, x, init, h._l_iw,
+                                               h._r_iw, lw))
+        else:
+            dnext, ow_perm, _p, n_f, _n = h._dense
+            want.append(lexer._pass_dense_plain(
+                h.tables, dnext, ow_perm, x, init, h._l_iw, h._r_iw, lw, n_f,
+                h._n_iws))
+    assert torch.equal(out, torch.cat(want))
