@@ -10,7 +10,8 @@ and a hash of it and the headers.  Every kernel is CUDA: the port needs no
 Triton.
 
 Every launch goes through :func:`launch`, which adds one to
-``launches[name]``: a run can show that its main path went through each
+``launches[name]`` (an entry point of COUNTED_AS counts as its kernel): a
+run can show that its main path went through each
 kernel.  A C entry point returns the
 ``cudaGetLastError()`` of its launch; a non-zero code raises.
 """
@@ -56,8 +57,11 @@ KERNELS = {
                    [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                     _P]),
     "hyph_segment": ("hyph_segment.cu", "bf_hyph_segment",
-                     [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                      _P, _I, _I, _P]),
+                     [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                      _P]),
+    "hyph_segment_packed": ("hyph_segment.cu", "bf_hyph_segment_packed",
+                            [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I,
+                             _I, _P]),
     "shard_stats": ("shard_stats.cu", "bf_shard_stats",
                     [_P, _I64, _P, _I64, _I64, _I, _P]),
     "pack_out": ("pack_out.cu", "bf_pack_out", [_P] * 5 + [_I, _I]),
@@ -113,6 +117,9 @@ PATHS = {
     "dp": {"shard_stats": "cuda"},
 }
 ROUTES = {name: route for p in PATHS.values() for name, route in p.items()}
+# entry points counted as the kernel they launch: K10 takes every bucket of
+# a HyphTpu call in one launch (bf_hyph_segment is its one-segment case)
+COUNTED_AS = {"hyph_segment_packed": "hyph_segment"}
 
 launches: collections.Counter = collections.Counter()
 _fns: dict = {}  # name -> (C entry point, bf_error_string)
@@ -240,4 +247,4 @@ def launch(name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"kernel {name} failed to launch: "
                            f"{err(rc).decode()} ({rc})")
-    launches[name] += 1
+    launches[COUNTED_AS.get(name, name)] += 1

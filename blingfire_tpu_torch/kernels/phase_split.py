@@ -1,18 +1,21 @@
-"""The time split of K9 lexer_pass, K1 bpe_walk, K5 unigram_walk and K7
-wp_subword_dense (with K8 wp_subword_comb) on the card.
+"""The time split of K9 lexer_pass, K1 bpe_walk, K5 unigram_walk, K7
+wp_subword_dense (with K8 wp_subword_comb), K10 hyph_segment and K12
+shard_stats on the card.
 
     python3 -m blingfire_tpu_torch.kernels.phase_split [--out FILE]
-        [--only k9,k1,k5,k7] [k9:LABEL=SOURCE ...] [k1:LABEL=SOURCE ...]
-        [k5:LABEL=SOURCE ...] [k7:LABEL=SOURCE ...]
+        [--only k9,k1,k5,k7,k10,k12] [k9:LABEL=SOURCE ...]
+        [k1:LABEL=SOURCE ...] [k5:LABEL=SOURCE ...] [k7:LABEL=SOURCE ...]
+        [k10:LABEL=SOURCE ...] [k12:LABEL=SOURCE ...]
 
 Each SOURCE defaults to this checkout's ``kernels/csrc/lexer_pass.cu``
 (K9), ``bpe_walk.cu`` (K1), ``unigram_walk.cu`` (K5) and ``wp_subword.cu``
-(K7 and K8), labelled "checkout"; another version of a source (unpacked
+(K7 and K8), ``hyph_segment.cu`` (K10) and ``shard_stats.cu`` (K12),
+labelled "checkout"; another version of a source (unpacked
 with ``git archive`` into an ignored directory) is given as
 ``k9:LABEL=PATH``.  A source is built by nvcc for sm_90a beside the
 checkout's headers and launched in place of the checkout's entry point
 through the checkout's wrapper, so its entry point must take the
-checkout's arguments.  ``--only`` runs the named kernels (by default all four).  Two versions
+checkout's arguments.  ``--only`` runs the named kernels (by default all six).  Two versions
 given in turns under four labels (parent, change, change2, parent2) are
 timed against the host's and the card's drift.
 
@@ -50,6 +53,20 @@ launches it), equal to the plain version; for K7 also each class alone
 shares and the cycles of the row each block's thread 0 runs; the visited
 chain's hops a row against the row's 128 lanes, and the walk's live
 lane-steps.
+
+K10: the rows of chip_smoke.py's kernels-h (the syllab-shaped model on
+the distinct words of the 32 MiB corpus and the edge words, one segment
+a bucket): per bucket and source, exactness against the plain version
+(tolerance 0), events and device ms, with markers the phase shares, and
+the launch floor: events and device ms of the source with the kernel's
+body emptied, at the same grid.  A source with the packed entry point
+``bf_hyph_segment_packed`` is also timed in one launch over every bucket.
+
+K12: seeded slabs of main-dp's six shapes and lanes (``measure.DP_SLABS``,
+the WordPiece slabs strided with their count column): per slab and
+source, exactness, events and device ms, the empty kernel's (the launch
+floor), and those of a build whose atomicAdds are replaced by stores
+that never happen (timed only: its sums are wrong).
 
 Prints the card's name, power limit and SM clock, one log line per launch
 and a JSON object per kernel; writes them all to FILE (default
@@ -756,6 +773,211 @@ def k7_split(sources, dev, results) -> None:
                     measure.log(f"[k7 {label}] " + json.dumps(row))
 
 
+def hollow(src: str, kernel: str) -> str:
+    """The source with the body of the __global__ ``kernel`` emptied: its
+    launcher starts an empty kernel at the same grid, block and dynamic
+    shared memory (the launch floor)."""
+    lo, hi = _body(src, kernel)
+    return src[:lo] + "\n" + src[hi:]
+
+
+ATOMIC_ADD = re.compile(r"atomicAdd\(([^,;]+),\s*([^;]+)\);")
+
+
+def no_atomics(src: str) -> str:
+    """The source with each ``atomicAdd(p, v);`` replaced by a store that a
+    value never met guards, so the sums stay live but nothing is added:
+    timed only, to weigh the atomics (its sums are wrong)."""
+    out, n = ATOMIC_ADD.subn(r"if ((\2) == 0x5bd1e9955bd1e995ULL) *(\1) = (\2);",
+                             src)
+    if not n:
+        raise ValueError("no atomicAdd in the source")
+    return out
+
+
+def _times(call, name: str, reps: int) -> tuple[float, float]:
+    """(events ms, profiler device ms) a call of ``call``, which launches
+    kernel ``name`` once."""
+    ms = measure.cuda_ms(call, reps)
+    st = measure.new_stats((name,), "probe")
+    measure.profiled_device_ms(call, st)
+    return ms, st[(name, "probe")]["device_ms"]
+
+
+def _stamp_shares(stamped, blocks: int, call, want) -> dict:
+    """Each phase's share of the stamped blocks' cycles: ``stamped`` is
+    ((fns, setter), phases) of a stamped build; ``call`` launches at most
+    ``blocks`` blocks and must return ``want``."""
+    import torch
+
+    (fns, setter), phases = stamped
+    clk = torch.zeros((blocks, len(phases)), dtype=torch.int64, device="cuda")
+    measure.check(setter(clk.data_ptr()) == 0, "cudaMemcpyToSymbol of the "
+                  "stamp buffer failed")
+    with swapped(fns):
+        got = call()
+        torch.cuda.synchronize()
+    measure.check(torch.equal(got, want), "the stamped copy differs")
+    tot = clk.cpu().double().sum(0)
+    return {p: float(c / tot.sum()) for p, c in zip(phases, tot)}
+
+
+def k10_rows(dev):
+    """(HyphTpu, [(bucket, x, word_len) of each segment]): the rows of
+    chip_smoke.py's kernels-h, the syllab-shaped model on the distinct
+    words of the 32 MiB corpus and the edge words."""
+    import torch
+
+    from blingfire_tpu_torch import testing
+    from blingfire_tpu_torch.models.loader import load_bytes
+    from blingfire_tpu_torch.runtime.hyph import HyphTpu
+
+    hy = HyphTpu(load_bytes(testing.syllab_shaped_model_bytes()), device=dev)
+    words = testing.corpus_words(_corpus()) + testing.hyph_edge_words()
+    _uniq, trace = measure.hyph_segments(hy, words)
+    return hy, [(bk, torch.from_numpy(x).to(dev), torch.from_numpy(wl).to(dev))
+                for bk, x, wl, _w in trace]
+
+
+def k10_split(sources, dev, results) -> None:
+    import torch
+
+    from blingfire_tpu_torch import kernels
+    from blingfire_tpu_torch.ops import hyph as hyph_ops
+
+    kernels._load("hyph_segment")
+    kern = "hyph_segment_kernel"
+    built = {}
+    for label, path in sources:
+        text = read_source(path, "bf_hyph_segment")
+        entries = _own("hyph_segment")
+        if "bf_hyph_segment_packed(" in text:  # one launch for all buckets
+            entries |= _own("hyph_segment_packed")
+        stext, phases = instrument(text, kern)
+        built[label] = {
+            "kernel": build(f"k10_{label}", text, entries, False)[0],
+            "floor": build(f"k10_{label}_empty", hollow(text, kern), entries,
+                           False)[0],
+            "stamped": ((build(f"k10_{label}_stamped", stext, entries, True),
+                         phases) if len(phases) > 1 else None)}
+        results[f"k10:{label}"] = {"source": path, "phases": phases
+                                   if len(phases) > 1 else None,
+                                   "buckets": [], "packed": None}
+    hy, segs = k10_rows(dev)
+    t = hy.tables
+    plain = []
+    for _bucket, x, wl in segs:
+        r = measure.reads()
+        plain.append((hyph_ops._hyph_segment_plain(t, x, wl, reads=r),
+                      measure.hyph_bytes(x, wl, r), r.steps))
+    for label, b in built.items():
+        res = results[f"k10:{label}"]
+        for (bucket, x, wl), (want, (nb, _ops), steps) in zip(segs, plain):
+            B, M = x.shape
+
+            def call(x=x, wl=wl):
+                return hyph_ops.hyph_segment(t, x, wl)
+
+            row = {"bucket": bucket, "rows": B, "width": M,
+                   "live_lane_steps": steps,
+                   "bound_ms": nb / measure.HBM_BYTES_PER_S * 1e3}
+            with swapped(b["kernel"]):
+                got = call()
+                torch.cuda.synchronize()
+                measure.check(torch.equal(got, want), f"k10 {label} bucket "
+                              f"{bucket} differs from the plain version")
+                row["ms"], row["device_ms"] = _times(call, "hyph_segment", 20)
+            with swapped(b["floor"]):
+                row["floor_ms"], row["floor_device_ms"] = _times(
+                    call, "hyph_segment", 20)
+            if b["stamped"]:
+                row["share"] = _stamp_shares(b["stamped"], B, call, want)
+            res["buckets"].append(row)
+            measure.log(f"[k10 {label}] " + json.dumps(row))
+        if "hyph_segment_packed" not in b["kernel"]:
+            continue
+        buf, pk = hyph_ops.pack_rows([(x.cpu().numpy(), wl.cpu().numpy())
+                                      for _b, x, wl in segs])
+        bufd = torch.from_numpy(buf).to(dev)
+        want = torch.cat([p[0].reshape(-1) for p in plain])
+
+        def packed():
+            return hyph_ops.hyph_segment_packed(t, bufd, pk)
+
+        row = {"segments": len(segs), "rows": sum(pk.rows),
+               "tiles": pk.n_tiles,
+               "tile_rows": [hyph_ops.tile_rows(m) for m in pk.widths],
+               "bound_ms": sum(p[1][0] for p in plain)
+               / measure.HBM_BYTES_PER_S * 1e3}
+        with swapped(b["kernel"]):
+            got = packed()
+            torch.cuda.synchronize()
+            measure.check(torch.equal(got, want), f"k10 {label}'s packed "
+                          f"launch differs from the plain version")
+            row["ms"], row["device_ms"] = _times(packed, "hyph_segment", 20)
+        with swapped(b["floor"]):
+            row["floor_ms"], row["floor_device_ms"] = _times(
+                packed, "hyph_segment", 20)
+        if b["stamped"]:
+            row["share"] = _stamp_shares(b["stamped"], pk.n_tiles, packed,
+                                         want)
+        res["packed"] = row
+        measure.log(f"[k10 {label}] one launch: " + json.dumps(row))
+
+
+def k12_split(sources, dev, results) -> None:
+    import torch
+
+    from blingfire_tpu_torch import kernels
+    from blingfire_tpu_torch.parallel import mesh
+
+    kernels._load("shard_stats")
+    kern = "shard_stats_kernel"
+    entries = _own("shard_stats")
+    built = {}
+    for label, path in sources:
+        text = read_source(path, "bf_shard_stats")
+        built[label] = {
+            "kernel": build(f"k12_{label}", text, entries, False)[0],
+            "floor": build(f"k12_{label}_empty", hollow(text, kern), entries,
+                           False)[0],
+            "no_atomics": build(f"k12_{label}_no_atomics", no_atomics(text),
+                                entries, False)[0]}
+        results[f"k12:{label}"] = {"source": path, "slabs": [], "sums": {}}
+    slabs = measure.dp_slabs(dev)
+    for label, b in built.items():
+        res = results[f"k12:{label}"]
+        for name, ids, counts in slabs:
+            lanes, nb, _ops = measure.dp_bytes(ids, counts)
+            acc = torch.zeros(2, dtype=torch.int64, device=dev)
+
+            def call(ids=ids, counts=counts, acc=acc):
+                return mesh.shard_stats(ids, counts, acc)
+
+            row = {"slab": name, "rows": ids.shape[0], "lanes": lanes,
+                   "strided": ids.stride(0) != ids.shape[1],
+                   "bound_ms": nb / measure.HBM_BYTES_PER_S * 1e3}
+            for part, fns in b.items():
+                with swapped(fns):
+                    if part == "kernel":
+                        acc.zero_()
+                        call()
+                        got = mesh.finish_stats(acc)
+                        want = mesh.finish_stats(mesh._shard_stats_plain(
+                            ids, counts))
+                        measure.check(got == want, f"k12 {label} on {name}: "
+                                      f"{got} differs from the plain {want}")
+                    key = "" if part == "kernel" else part + "_"
+                    row[key + "ms"], row[key + "device_ms"] = _times(
+                        call, "shard_stats", 50)
+            res["slabs"].append(row)
+            for k, v in row.items():
+                if k.endswith("ms"):
+                    res["sums"][k] = res["sums"].get(k, 0.0) + v
+            measure.log(f"[k12 {label}] " + json.dumps(row))
+        measure.log(f"[k12 {label}] six slabs: {res['sums']}")
+
+
 def main() -> int:
     import torch
 
@@ -777,9 +999,10 @@ def main() -> int:
     args = sys.argv[1:]
     out_path = os.path.join(build_dir(), "phase_split.json")
     own = {"k9": "lexer_pass.cu", "k1": "bpe_walk.cu",
-           "k5": "unigram_walk.cu", "k7": "wp_subword.cu"}
+           "k5": "unigram_walk.cu", "k7": "wp_subword.cu",
+           "k10": "hyph_segment.cu", "k12": "shard_stats.cu"}
     splits = {"k9": k9_split, "k1": k1_split, "k5": k5_split,
-              "k7": k7_split}
+              "k7": k7_split, "k10": k10_split, "k12": k12_split}
     srcs = {k: [] for k in own}
     only = list(own)
     while args:

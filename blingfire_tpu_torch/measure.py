@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 CORPUS_BYTES = 32 << 20  # end-to-end corpus
 CMP_BYTES = 4 << 20  # corpus prefix whose packed rows the kernels are held on
 WIDE_DOC = 2048  # main-ww's window: past the compact lanes and K2's rows
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # profiler kernel names of each wrapper
 KERNEL_NAMES = {"bpe_walk": ("bpe_walk_kernel",),
                 "bpe_resolve": ("bpe_resolve_kernel",),
@@ -198,3 +199,69 @@ def units_np_launches(tok, sub, dedup, bpe_ops, dev):
                  torch.from_numpy(plen[lo : lo + step]).to(dev))
                 for lo in range(0, len(px), step)]
     return ub, W, launches, t_split, t_pack
+
+
+def hyph_segments(hy, words):
+    """K10's rows: (the distinct words of at most 300 code points, [(bucket,
+    x, word_len, words) of each segment] of one ``hy.process_batch`` call
+    over them)."""
+    uniq = list(dict.fromkeys(tuple(w) for w in words if len(w) <= 300))
+    trace = []
+    hy.process_batch(uniq, trace=trace)
+    return uniq, trace
+
+
+def hyph_bytes(x, word_len, r) -> tuple[int, int]:
+    """(bytes, operations) of K10 on rows ``x`` (B, M): the rows and word
+    lengths in, the ops out, each table entry the plain walk noted in
+    ``r`` (a ``Reads``) once; a live lane-step or an output position an
+    operation."""
+    B, M = x.shape
+    return (B * M * 4 + B * 4 + B * (M - 2) * 4 + r.table_bytes(),
+            r.steps + B * M)
+
+
+# main-dp's slabs on one rank (chip_smoke, NVIDIA H100): name, rows, the
+# rows with a count (ShardedSpRunner.run leaves a document past its
+# 128-symbol window an empty row: 7,359 of the 9,997 documents), the lanes
+# below the counts, and whether the slab is the WordPiece runner's strided
+# ``out[:, :-2]`` with its count column ``out[:, -2]``
+DP_SLABS = (("gpt2 run", 9997, 2638, 73745, False),
+            ("gpt2 run_units", 2559, 2559, 142869, False),
+            ("xlnet run", 9997, 2638, 69757, False),
+            ("xlnet run_units", 2557, 2557, 133656, False),
+            ("wordpiece lw 18", 2305, 2305, 66399, True),
+            ("wordpiece lw 42", 118, 118, 5013, True))
+DP_WIDTH = 128
+
+
+def dp_slabs(dev, seed: int = 0) -> list:
+    """[(name, ids, counts)]: seeded slabs of DP_SLABS's shapes on ``dev``:
+    each slab's lanes spread at random over a random choice of its rows
+    with a count (at most DP_WIDTH a row), ids in gpt2's range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    W = DP_WIDTH
+    for name, R, busy, lanes, strided in DP_SLABS:
+        counts = np.zeros(R, np.int32)
+        rows = np.sort(rng.choice(R, busy, replace=False))
+        counts[rows] = rng.multinomial(lanes, np.full(busy, 1.0 / busy))
+        check(counts.max() <= W, f"{name}: a count over {W}")
+        ids = rng.integers(0, 50257, (R, W + 2 if strided else W),
+                           dtype=np.int32)
+        t = torch.from_numpy(ids).to(dev)
+        if strided:
+            t[:, -2] = torch.from_numpy(counts).to(dev)
+            out.append((name, t[:, :-2], t[:, -2]))
+        else:
+            out.append((name, t, torch.from_numpy(counts).to(dev)))
+    return out
+
+
+def dp_bytes(ids, counts) -> tuple[int, int, int]:
+    """(lanes below the counts, bytes, operations) of K12 on one slab: the
+    lanes and the counts read once, acc written; three operations a lane."""
+    lanes = int(counts.clamp(0, ids.shape[1]).sum())
+    return lanes, lanes * 4 + ids.shape[0] * 4 + 16, 3 * lanes

@@ -10,8 +10,10 @@ where they are equal, CONFLICT otherwise), as the JAX package's
 scatter-min/scatter-max does.
 
 ``hyph_segment`` (K10, ``kernels/csrc/hyph_segment.cu``) runs on the card;
-``_hyph_segment_plain`` is its plain PyTorch version, which the wrapper runs
-only for tensors on the CPU.  The comb lookup takes no transition when
+``hyph_segment_packed`` launches it once over the rows of several widths
+that ``pack_rows`` put in one buffer (every bucket of a
+``HyphTpu.process_batch`` call).  ``_hyph_segment_plain`` is its plain
+PyTorch version, which the wrappers run only for tensors on the CPU.  The comb lookup takes no transition when
 ``base[s] + c`` falls outside the slot array (``ops/lexer.py::comb_lookup``);
 the JAX package clamps the slot (hyph.py:96) and so, from the state that
 owns slot 0, takes a transition that the automaton does not have
@@ -49,6 +51,10 @@ class HyphDeviceTables:
     nxt: torch.Tensor  # int32[slots]
     final: torch.Tensor  # bool[n_states]
     moore_ow: torch.Tensor  # int32[n_states] pattern id of a final
+    # K10's packed records (ops/lexer.py's layout): a step reads one slot
+    # record and the next state's record
+    state_rec: torch.Tensor  # int32 (n_states, 4): base, final, Moore Ow, 0
+    slot_rec: torch.Tensor  # int32 (slots, 2): owner, nxt
     pat_vals: torch.Tensor  # int32 (n_pats, max_pat), DONT_CARE padded
     pat_len: torch.Tensor  # int32 (n_pats,)
     n_slots: int
@@ -69,6 +75,13 @@ def make_device_tables(table: CombTable, moore_ow, i2info: dict, params,
         pat_vals[k, : len(v)] = v
         pat_len[k] = len(v)
 
+    state_rec = np.zeros((len(table.base), 4), np.int32)
+    state_rec[:, 0] = table.base
+    state_rec[:, 1] = np.asarray(table.final, bool)
+    state_rec[:, 2] = moore_ow
+    slot_rec = np.stack([np.asarray(table.owner, np.int32),
+                         np.asarray(table.nxt, np.int32)], axis=1)
+
     def dev(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
                                                            dtype=dtype)
@@ -79,6 +92,8 @@ def make_device_tables(table: CombTable, moore_ow, i2info: dict, params,
         nxt=dev(table.nxt),
         final=dev(table.final, torch.bool),
         moore_ow=dev(moore_ow),
+        state_rec=dev(state_rec),
+        slot_rec=dev(slot_rec),
         pat_vals=dev(pat_vals),
         pat_len=dev(pat_len),
         n_slots=table.n_slots,
@@ -177,12 +192,117 @@ def hyph_segment(tables: HyphDeviceTables, x_iw: torch.Tensor,
     if B:
         kernels.launch(
             "hyph_segment", x_iw.device,
-            tables.base.data_ptr(), tables.owner.data_ptr(),
-            tables.nxt.data_ptr(), tables.final.data_ptr(),
-            tables.moore_ow.data_ptr(), tables.base.numel(), tables.n_slots,
+            tables.state_rec.data_ptr(), tables.slot_rec.data_ptr(),
+            tables.base.numel(), tables.n_slots,
             tables.pat_vals.data_ptr(), tables.pat_len.data_ptr(),
             tables.pat_len.numel(), tables.max_pat, tables.min_pat_len,
             tables.no_hyph_len, x_iw.data_ptr(), word_len.data_ptr(), B, M,
+            out.data_ptr(),
+        )
+    return out
+
+
+# ------------------------------------------------- one launch, many widths
+
+TILE_THREADS = 256  # K10's block; a tile is tile_rows(M) rows of one width
+SEG_INTS = 8  # int32 words of a segment record
+
+
+def tile_rows(M: int) -> int:
+    """Rows of width M in one of K10's tiles."""
+    return max(1, TILE_THREADS // M)
+
+
+@dataclass(frozen=True)
+class Packed:
+    """Where :func:`pack_rows` put each segment (rows of one width): the
+    buffer holds the segment records, then every segment's rows, then
+    every row's word length; the ops of segment s are ``out[out_offs[s] :
+    out_offs[s] + rows[s] * (widths[s] - 2)]``."""
+
+    rows: tuple[int, ...]
+    widths: tuple[int, ...]  # M of each segment
+    out_offs: tuple[int, ...]
+    n_tiles: int
+    buf_len: int
+    out_len: int
+
+    def split(self, out: torch.Tensor) -> list[torch.Tensor]:
+        """The (rows, M - 2) ops of each segment, views of ``out`` (a
+        tensor or an array)."""
+        return [out[o : o + b * (m - 2)].reshape(b, m - 2)
+                for b, m, o in zip(self.rows, self.widths, self.out_offs)]
+
+
+def pack_rows(segs) -> tuple[np.ndarray, Packed]:
+    """One int32 buffer of the segments ``segs``, [(x int32 (B, M), word_len
+    int32 (B,))], for :func:`hyph_segment_packed`: a record of SEG_INTS ints
+    a segment {first tile, rows, M, tile rows, rows' offset, word lengths'
+    offset, ops' offset, 0} (offsets in int32 elements of the buffer and of
+    the output), then the rows back to back, then the word lengths."""
+    n = len(segs)
+    if not n:
+        raise ValueError("no segment to pack")
+    shapes = [tuple(np.shape(x)) for x, _wl in segs]
+    for (B, M), (_x, wl) in zip(shapes, segs):
+        if not 2 <= M <= MAX_HYPH_ROW or np.shape(wl) != (B,):
+            raise ValueError(f"a segment of rows (B, 2..{MAX_HYPH_ROW}) and "
+                             f"word lengths (B,), got {(B, M)} and "
+                             f"{np.shape(wl)}")
+    rows = [B for B, _M in shapes]
+    widths = [M for _B, M in shapes]
+    tiles = [-(-B // tile_rows(M)) for B, M in shapes]
+    x_offs = np.cumsum([n * SEG_INTS] + [B * M for B, M in shapes])
+    wl_offs = x_offs[-1] + np.cumsum([0] + rows)
+    out_offs = np.cumsum([0] + [B * (M - 2) for B, M in shapes])
+    buf_len = int(wl_offs[-1])
+    if max(buf_len, int(out_offs[-1])) >= 2**31:
+        raise ValueError("a packed launch past 2^31 elements")
+    buf = np.empty(buf_len, np.int32)
+    rec = np.zeros((n, SEG_INTS), np.int64)
+    rec[:, 0] = np.cumsum([0] + tiles[:-1])
+    rec[:, 1] = rows
+    rec[:, 2] = widths
+    rec[:, 3] = [tile_rows(M) for M in widths]
+    rec[:, 4] = x_offs[:-1]
+    rec[:, 5] = wl_offs[:-1]
+    rec[:, 6] = out_offs[:-1]
+    buf[: n * SEG_INTS] = rec.reshape(-1)
+    for s, (x, wl) in enumerate(segs):
+        buf[x_offs[s] : x_offs[s + 1]] = np.asarray(x, np.int32).reshape(-1)
+        buf[wl_offs[s] : wl_offs[s + 1]] = wl
+    return buf, Packed(tuple(rows), tuple(widths),
+                       tuple(int(o) for o in out_offs[:-1]), sum(tiles),
+                       buf_len, int(out_offs[-1]))
+
+
+def hyph_segment_packed(tables: HyphDeviceTables, buf: torch.Tensor,
+                        packed: Packed) -> torch.Tensor:
+    """The ops of every segment of ``buf`` (:func:`pack_rows`, on the
+    device) in one int32 tensor (``packed.out_len``,); ``packed.split``
+    cuts it by segment.  K10 in one launch on a CUDA buffer; on a CPU
+    buffer the plain version segment by segment, reading the records."""
+    if buf.dtype != torch.int32 or tuple(buf.shape) != (packed.buf_len,) \
+            or not buf.is_contiguous():
+        raise ValueError(f"buf: want contiguous int32 ({packed.buf_len},), "
+                         f"got {buf.dtype} {tuple(buf.shape)}")
+    n = len(packed.rows)
+    out = torch.empty(packed.out_len, dtype=torch.int32, device=buf.device)
+    if not kernels.on_card(buf):
+        rec = buf[: n * SEG_INTS].view(n, SEG_INTS).tolist()
+        for _tile, B, M, _T, xo, wo, oo, _z in rec:
+            out[oo : oo + B * (M - 2)] = _hyph_segment_plain(
+                tables, buf[xo : xo + B * M].view(B, M),
+                buf[wo : wo + B]).reshape(-1)
+        return out
+    if packed.n_tiles:
+        kernels.launch(
+            "hyph_segment_packed", buf.device,
+            tables.state_rec.data_ptr(), tables.slot_rec.data_ptr(),
+            tables.base.numel(), tables.n_slots,
+            tables.pat_vals.data_ptr(), tables.pat_len.data_ptr(),
+            tables.pat_len.numel(), tables.max_pat, tables.min_pat_len,
+            tables.no_hyph_len, buf.data_ptr(), n, packed.n_tiles,
             out.data_ptr(),
         )
     return out

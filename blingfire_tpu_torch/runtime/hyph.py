@@ -3,16 +3,18 @@
 ``HyphEngine`` is the scalar engine (FAHyphInterpreter_core_t.h:136-267),
 copied.  ``HyphTpu(model, device="cuda").process_batch(words)`` hyphenates
 a batch of words (code point lists) on the card through K10
-(ops/hyph.py::hyph_segment): each distinct word once, folded (ignore-case),
-mapped through the model's 1:1 charmap and its dense alphabet, with the
-anchors around it.  A word over MAX_WORD_SIZE code points gives None.
+(ops/hyph.py::hyph_segment_packed): each distinct word once, folded
+(ignore-case), mapped through the model's 1:1 charmap and its dense
+alphabet, with the anchors around it.  A word over MAX_WORD_SIZE code points gives None.
 
 Not ported, by design: the TPU's fixed launch shape (``ROWS = 4096``) and
 the single width doubled to the batch's longest word, with which one
 300-character word makes every row 512 lanes wide.  A word goes to the
 narrowest of BUCKETS that holds it (the last is MAX_WORD_SIZE, so one always
-does), and a launch takes as many rows of one bucket as LAUNCH_BYTES allows.
-The output does not depend on either choice.
+does).  A launch of K10 takes the rows of every bucket back to back, each
+bucket a segment at its own width, as many as LAUNCH_BYTES allows
+(``launch_plan``): one h2d of one buffer (``ops/hyph.py::pack_rows``), one
+launch, one d2h.  The output does not depend on either choice.
 """
 
 from __future__ import annotations
@@ -35,6 +37,30 @@ from .oracle import TransitionIndex
 # word widths of the launches; the last is always MAX_WORD_SIZE
 BUCKETS = (16, 32, 64, 128, MAX_WORD_SIZE)
 LAUNCH_BYTES = 64 << 20  # rows in and ops out of one launch
+
+
+def launch_plan(groups) -> list[list[tuple[int, np.ndarray]]]:
+    """The launches of ``groups``, [(bucket, row indices)]: [(bucket, row
+    indices) of each segment] a launch, the groups' rows in order, as many
+    as LAUNCH_BYTES (rows in, word lengths, ops out) allows and at least
+    one a launch."""
+    plan, cur, left = [], [], LAUNCH_BYTES
+    for bucket, idxs in groups:
+        row = 4 * (2 * bucket + 3)  # the row (M), its length, its ops (W)
+        off = 0
+        while off < len(idxs):
+            k = min(len(idxs) - off, max(left, 0) // row)
+            if not k and cur:
+                plan.append(cur)
+                cur, left = [], LAUNCH_BYTES
+                continue
+            k = max(k, 1)
+            cur.append((bucket, idxs[off : off + k]))
+            off += k
+            left -= k * row
+    if cur:
+        plan.append(cur)
+    return plan
 
 
 class HyphEngine:
@@ -142,6 +168,7 @@ class HyphStats:
     unique: int = 0  # distinct words of at most MAX_WORD_SIZE
     oversize: int = 0  # words over MAX_WORD_SIZE (None)
     rows: collections.Counter = field(default_factory=collections.Counter)
+    # the launches that held the bucket
     launches: collections.Counter = field(default_factory=collections.Counter)
     # keys of both: bucket width
 
@@ -206,13 +233,6 @@ class HyphTpu:
         x[np.arange(n), lens + 1] = self._r_iw
         return x, lens.astype(np.int32)
 
-    def launch(self, x: np.ndarray, word_len: np.ndarray) -> np.ndarray:
-        """K10 over rows built by :meth:`rows`: the (n, M - 2) ops."""
-        dev = self.device
-        out = hyph_ops.hyph_segment(self.tables, torch.from_numpy(x).to(dev),
-                                    torch.from_numpy(word_len).to(dev))
-        return out.cpu().numpy()
-
     def process_batch(self, words: list[list[int]],
                       counters: metrics.Counters | None = None,
                       trace: list | None = None) -> list[list[int] | None]:
@@ -221,7 +241,7 @@ class HyphTpu:
         alone, so each distinct word is hyphenated once a call.
         ``last_stats`` gets what the call did, ``counters`` its stage
         seconds; ``trace``, when a list, gets (bucket, x, word_len, words)
-        of every launch."""
+        of every segment (a bucket's rows in one launch)."""
         c = counters or metrics.global_counters()
         st = self.last_stats = HyphStats(words=len(words))
         out: list[list[int] | None] = [None] * len(words)
@@ -249,17 +269,19 @@ class HyphTpu:
         results: list = [None] * len(uwords)
         assert BUCKETS[-1] == MAX_WORD_SIZE
         which = np.searchsorted(BUCKETS, lens)  # narrowest that fits
-        for bi in np.unique(which):
-            idxs = np.flatnonzero(which == bi)
-            bucket = BUCKETS[bi]
-            M = bucket + 2
-            per = max(1, LAUNCH_BYTES // (4 * (M + bucket + 1)))
-            for off in range(0, len(idxs), per):
-                part = idxs[off : off + per]
-                with metrics.stage("pack", c):
-                    x, wl = self.rows([seqs[u] for u in part], M)
-                with metrics.stage("device", c):
-                    ops = self.launch(x, wl)
+        for launch in launch_plan([(BUCKETS[bi], np.flatnonzero(which == bi))
+                                   for bi in np.unique(which)]):
+            with metrics.stage("pack", c):
+                segs = [(bucket, part,
+                         *self.rows([seqs[u] for u in part], bucket + 2))
+                        for bucket, part in launch]
+                buf, packed = hyph_ops.pack_rows([(x, wl) for _b, _p, x, wl
+                                                  in segs])
+            with metrics.stage("device", c):
+                flat = hyph_ops.hyph_segment_packed(
+                    self.tables, torch.from_numpy(buf).to(self.device),
+                    packed).cpu().numpy()
+            for (bucket, part, x, wl), ops in zip(segs, packed.split(flat)):
                 if trace is not None:
                     trace.append((bucket, x, wl, [uwords[u] for u in part]))
                 st.rows[bucket] += len(part)

@@ -82,13 +82,15 @@ Phases, each of which must pass (any failure exits non-zero):
  19. main-h   W2H hyphenation as a user drives it: HyphTpu(model,
               device="cuda").process_batch(words) over every token of the
               corpus (stripped of .,!?"' at its ends) and the edge words, a
-              first call, a second, one profiled: K10 must launch; every
+              first call, a second, one profiled: K10 must launch once a
+              call (every bucket in one launch); every
               distinct word of at most 300 code points must equal the native
               runtime's WordHyphenationWithModel, 500 sampled words the
               scalar HyphEngine, and longer words give None;
- 20. kernels-h K10 against its plain version on the rows of every launch
-              (every bucket width) of one batch of the distinct words;
-              tolerance 0;
+ 20. kernels-h K10 against its plain version on one batch of the
+              distinct words: each segment (a bucket's rows) alone, then
+              the batch in one packed launch as main-h makes it; rows, ms
+              and tile shape by bucket; tolerance 0;
  21. model-b  two seeded SentencePiece-BPE-shaped merges models (32,000
               entries, char mode, the xlnet-shaped alphabet with 3,000 and
               with 420 CJK characters, pair pieces ▁w1▁w2, so not
@@ -140,7 +142,9 @@ Phases, each of which must pass (any failure exits non-zero):
               ids main's and main-u's, run_rows' rows WordPieceHybrid
               .dispatch's; K12 must launch;
  29. kernels-dp K12 shard_stats against its plain version on main-dp's
-              slabs (the WordPiece ones strided); tolerance 0.
+              slabs (the WordPiece ones strided), beside its launch floor
+              (the source with the kernel's body emptied, at the same
+              grid); tolerance 0.
 The kernels, every one CUDA (kernels/csrc/, one nvcc a source), each
 launched through kernels.launch: K1 bpe_walk, K2 bpe_resolve, K3
 scatter_trie, K4 pack_out_compact, K5 unigram_walk, K6 unigram_viterbi, K7
@@ -175,15 +179,16 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from blingfire_tpu_torch.measure import (CMP_BYTES, CORPUS_BYTES, WIDE_DOC,
+from blingfire_tpu_torch.measure import (CMP_BYTES, CORPUS_BYTES,
+                                         HBM_BYTES_PER_S, WIDE_DOC,
                                          UNI_MODES, check, corpus_prefix,
-                                         cuda_ms, log, new_stats,
+                                         cuda_ms, dp_bytes, hyph_bytes,
+                                         hyph_segments, log, new_stats,
                                          packed_regions, profiled_device_ms,
                                          reads, self_device_us,
                                          unigram_tables, units_np_launches)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 peak, taken for 32-bit scalar ops
 ORACLE_DOCS = 500  # documents checked against the scalar oracle
 DF64_OPS = 14  # float32 operations per Viterbi candidate: df_add and compare
@@ -890,7 +895,9 @@ def run_hyph_main(hy, words, n_bytes: int, kernels, metrics) -> dict:
         f"({busy / t3:.6f} of the call), idle share {1 - busy / t3:.6f}")
     check(len(out) == len(words) and peak > 0 and st.unique > 0,
           "no output, distinct words or peak memory")
-    check(launches.get("hyph_segment", 0) > 0, "K10 never launched on main-h")
+    check(launches.get("hyph_segment", 0) == 1,
+          f"main-h's first call made {launches.get('hyph_segment', 0)} K10 "
+          f"launches, not one")
     return dict(out=out, launches=launches)
 
 
@@ -932,19 +939,18 @@ def check_hyph(hy, words, out, native, blob: bytes, render) -> None:
 
 
 def hyph_kernels(hy, words, hyph_ops, dev) -> dict:
-    """Phase 20: K10 against its plain version on the rows of every launch
-    (every bucket width) of one batch of the distinct words."""
-    uniq = list(dict.fromkeys(tuple(w) for w in words if len(w) <= 300))
-    trace = []
-    hy.process_batch(uniq, trace=trace)
+    """Phase 20: K10 against its plain version on one batch of the distinct
+    words: each segment (a bucket's rows) alone, then the batch in one
+    packed launch, as main-h launches it; the packed launch's times are
+    K10's."""
+    _uniq, trace = hyph_segments(hy, words)
     t = hy.tables
     key = ("hyph_segment", "hyph")
     stats = new_stats(("hyph_segment",), "hyph")
     s = stats[key]
-    batches = []
+    segs, want = [], []
     for bucket, x, wl, _w in trace:
         xd, wd = (torch.from_numpy(a).to(dev) for a in (x, wl))
-        batches.append((xd, wd))
         B, M = x.shape
         k = hyph_ops.hyph_segment(t, xd, wd)
         r = reads()
@@ -952,27 +958,34 @@ def hyph_kernels(hy, words, hyph_ops, dev) -> dict:
         torch.cuda.synchronize()
         s["err"] = max(s["err"], max_abs_err([(k, p)]))
         k_ms = cuda_ms(lambda: hyph_ops.hyph_segment(t, xd, wd), 20)
-        s["ms"] += k_ms
         s["plain_ms"] += cuda_ms(lambda: hyph_ops._hyph_segment_plain(
             t, xd, wd), 1, warm=1)
-        # rows in (x; word_len), ops out, and each table entry read once
-        s["bytes"] += B * M * 4 + B * 4 + B * (M - 2) * 4 + r.table_bytes()
-        s["ops"] += r.steps + B * M
-        log(f"[kernels-h] bucket {bucket}: {B} rows of {M} lanes equal to "
-            f"the plain version; {k_ms:.5f} ms per launch; positions with "
-            f"an op > 0 {int((k > 0).sum())}; live lane-steps {r.steps}, "
-            f"table bytes read {r.table_bytes()}")
+        nb, ops = hyph_bytes(x, wl, r)
+        s["bytes"] += nb
+        s["ops"] += ops
+        segs.append((x, wl))
+        want.append(p.reshape(-1))
+        log(f"[kernels-h] bucket {bucket}: {B} rows of {M} lanes, tiles of "
+            f"{hyph_ops.tile_rows(M)} rows, alone equal to the plain "
+            f"version; {k_ms:.5f} ms per launch alone; positions with an op "
+            f"> 0 {int((k > 0).sum())}; live lane-steps {r.steps}, table "
+            f"bytes read {r.table_bytes()}")
+    buf, pk = hyph_ops.pack_rows(segs)
+    bufd = torch.from_numpy(buf).to(dev)
+    got = hyph_ops.hyph_segment_packed(t, bufd, pk)
+    torch.cuda.synchronize()
+    s["err"] = max(s["err"], max_abs_err([(got, torch.cat(want))]))
+    s["ms"] = cuda_ms(lambda: hyph_ops.hyph_segment_packed(t, bufd, pk), 20)
 
     def once():
-        for xd, wd in batches:
-            hyph_ops.hyph_segment(t, xd, wd)
+        hyph_ops.hyph_segment_packed(t, bufd, pk)
 
     profiled_device_ms(once, stats)
     bound, bound_by = bound_of(s)
-    log(f"[kernels-h] {len(batches)} launches over {len(uniq)} distinct "
-        f"words, {s['ms']:.4f} ms, device {s['device_ms']} ms, plain "
-        f"{s['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
-        f"max_abs_err {s['err']}")
+    log(f"[kernels-h] one launch over {len(segs)} segments, {sum(pk.rows)} "
+        f"rows in {pk.n_tiles} tiles: {s['ms']:.5f} ms, device "
+        f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms (a segment at a "
+        f"time), bound {bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
     return stats
 
 
@@ -1315,10 +1328,18 @@ def pack_host_ns(name: str, dedup, kernels, ids, sts, cnt, fb,
 
 def dp_kernels(slabs, mesh) -> dict:
     """Phase 29: K12 against its plain version on each (ids, counts) slab
-    of main-dp (the WordPiece slabs strided), their times and byte bound;
-    no one PyTorch call computes it."""
+    of main-dp (the WordPiece slabs strided), their times, byte bound and
+    launch floor (the source with the kernel's body emptied, launched by
+    the same wrapper at the same grid); no one PyTorch call computes it."""
+    from blingfire_tpu_torch.kernels import phase_split
+
     stats = new_stats(("shard_stats",), "dp")
     s = stats[("shard_stats", "dp")]
+    text = phase_split.read_source(os.path.join(
+        ROOT, SOURCES["shard_stats"][0]), "bf_shard_stats")
+    empty = phase_split.build("k12_empty", phase_split.hollow(
+        text, "shard_stats_kernel"), phase_split._own("shard_stats"), False)[0]
+    floor = new_stats(("shard_stats",), "floor")
     for name, ids, counts in slabs:
         R, W = ids.shape
         acc = torch.zeros(2, dtype=torch.int64, device=ids.device)
@@ -1330,15 +1351,18 @@ def dp_kernels(slabs, mesh) -> dict:
                                            zip(got, exp))))
         k_ms = cuda_ms(lambda: mesh.shard_stats(ids, counts, acc), 50)
         s["ms"] += k_ms
+        with phase_split.swapped(empty):
+            f_ms = cuda_ms(lambda: mesh.shard_stats(ids, counts, acc), 50)
+        floor[("shard_stats", "floor")]["ms"] += f_ms
         s["plain_ms"] += cuda_ms(lambda: mesh._shard_stats_plain(ids, counts),
                                  20)
-        lanes = int(counts.clamp(0, W).sum())
-        # the lanes below each count and the counts read, acc written
-        s["bytes"] += lanes * 4 + R * 4 + 16
-        s["ops"] += 3 * lanes
+        lanes, nb, ops = dp_bytes(ids, counts)
+        s["bytes"] += nb
+        s["ops"] += ops
         log(f"[kernels-dp] {name}: {R} rows of {W} lanes ({lanes} below the "
-            f"counts): K12 {got} equals its plain version {exp}; "
-            f"{k_ms:.5f} ms per launch")
+            f"counts, {int((counts != 0).sum())} rows with a count): K12 "
+            f"{got} equals its plain version {exp}; {k_ms:.5f} ms per "
+            f"launch, the empty kernel {f_ms:.5f} ms")
 
     def once():
         acc = torch.zeros(2, dtype=torch.int64, device="cuda")
@@ -1346,10 +1370,15 @@ def dp_kernels(slabs, mesh) -> dict:
             mesh.shard_stats(ids, counts, acc)
 
     profiled_device_ms(once, stats)
+    with phase_split.swapped(empty):
+        profiled_device_ms(once, floor)
+    f = floor[("shard_stats", "floor")]
     bound, bound_by = bound_of(s)
     log(f"[kernels-dp] {len(slabs)} launches, {s['ms']:.4f} ms, device "
-        f"{s['device_ms']} ms, plain {s['plain_ms']:.4f} ms, bound "
-        f"{bound:.5f} ms ({bound_by}), max_abs_err {s['err']}")
+        f"{s['device_ms']} ms; the empty kernel at the same grids "
+        f"{f['ms']:.4f} ms, device {f['device_ms']} ms; plain "
+        f"{s['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+        f"max_abs_err {s['err']}")
     return stats
 
 

@@ -8,10 +8,12 @@ its launcher widens a group, K4 pack_out_compact at widths 1 to 1,024
 dense sub-grammar; K7 and K8 also in one launch over both length classes),
 K5 at the depths around its 32-depth chunks (testing.unigram_deep_rows),
 and K9 lexer_pass of the pattern lexer on the shipped
-wbd and sbd models (also at 4,098 and 16,386 lanes), and K10 hyph_segment on syllab-shaped W2H models; K5,
+wbd and sbd models (also at 4,098 and 16,386 lanes), and K10 hyph_segment on syllab-shaped W2H models (also
+packed: every tile shape, every bucket in one launch); K5,
 K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
 takes a transition that the automaton does not have; K11 pack_out (at
-widths 1 to 1,024, aligned or not) and K12 shard_stats, K2 on the seeded
+widths 1 to 1,024, aligned or not) and K12 shard_stats (also at row
+counts around a warp and past a wave's spans), K2 on the seeded
 edge rows of testing.resolve_edge_rows in its three modes, and the routes
 of a window of 2,048 symbols on the card against the CPU.
 
@@ -544,6 +546,68 @@ def test_hyph_tpu_on_the_card_matches_cpu():
     assert got[words.index([ord(c) for c in "'ab"])] == [-1, -1, -1]
 
 
+def _random_rows(h: HyphTpu, rng, B: int, M: int):
+    """Seeded rows of random symbols, the unmapped sentinel, anchors and
+    padding anywhere, and word lengths that disagree with the row."""
+    W = M - 2
+    x = rng.integers(-1, h._n_iws + 1, (B, M)).astype(np.int32)
+    x[:, 0] = h._l_iw
+    wl = rng.integers(0, W + 1, B).astype(np.int32)
+    x[np.arange(B), np.minimum(wl + 1, M - 1)] = h._r_iw
+    wl[: min(B, 3)] = [0, W + 3, 1][: min(B, 3)]
+    return x, wl
+
+
+def _k10_packed_matches_plain(tables, segs):
+    """One packed K10 launch over ``segs`` [(x, wl)] against the plain
+    version a segment, both on the card."""
+    buf, pk = hyph.pack_rows(segs)
+    n = kernels.launches["hyph_segment"]
+    out = hyph.hyph_segment_packed(tables, torch.from_numpy(buf).cuda(), pk)
+    assert kernels.launches["hyph_segment"] == n + (pk.n_tiles > 0)
+    for (x, wl), ops in zip(segs, pk.split(out)):
+        assert torch.equal(ops, hyph._hyph_segment_plain(
+            tables, torch.from_numpy(x).cuda(), torch.from_numpy(wl).cuda()))
+
+
+@pytest.mark.parametrize("min_pat_len,no_hyph_len", [(2, 0), (3, 2)])
+@pytest.mark.parametrize("M", [2, 3, 18, 34, 66, 130, 302])
+def test_hyph_packed_kernel_at_every_tile_shape(M, min_pat_len, no_hyph_len):
+    """Random rows at every tile shape (T = max(1, 256 // M) rows a block),
+    B not a multiple of T: one segment packed, the same rows through the
+    one-segment entry, and the rows split over two segments of a launch."""
+    _need_cuda()
+    h = _hyph("small", "cuda")
+    t = dataclasses.replace(h.tables, min_pat_len=min_pat_len,
+                            no_hyph_len=no_hyph_len)
+    rng = np.random.default_rng(M)
+    B = 3 * hyph.tile_rows(M) + 1
+    x, wl = _random_rows(h, rng, B, M)
+    _k10_packed_matches_plain(t, [(x, wl)])
+    _k10_matches_plain(t, torch.from_numpy(x).cuda(),
+                       torch.from_numpy(wl).cuda())
+    _k10_packed_matches_plain(t, [(x[:5], wl[:5]), (x[5:], wl[5:])])
+
+
+@pytest.mark.parametrize("kind", ["small", "slot0"])
+def test_hyph_packed_kernel_over_every_bucket_in_one_launch(kind):
+    """The segments of a process_batch call (every bucket) in one launch
+    with an empty segment among them, and process_batch's own single
+    launch against the CPU's."""
+    _need_cuda()
+    h = _hyph(kind, "cuda")
+    words = _hyph_words()
+    trace = []
+    kernels.reset_launches()
+    got = h.process_batch(words, trace=trace)
+    assert kernels.launches["hyph_segment"] == 1
+    assert got == _hyph(kind, "cpu").process_batch(words)
+    segs = [(x, wl) for _b, x, wl, _w in trace]
+    assert len(segs) >= 4
+    segs.insert(2, (np.zeros((0, 66), np.int32), np.zeros(0, np.int32)))
+    _k10_packed_matches_plain(h.tables, segs)
+
+
 # ------------------------------------------- the classic doc rows (PR 6)
 
 
@@ -846,6 +910,36 @@ def test_shard_stats_kernel_matches_plain(layout):
     assert kernels.launches["shard_stats"] == n + 2
     want = mesh._shard_stats_plain(t_ids, t_counts)
     assert mesh.finish_stats(acc) == mesh.finish_stats(want)
+
+
+@pytest.mark.parametrize("R", [1, 31, 32, 33, 9997])
+def test_shard_stats_kernel_over_row_counts(R):
+    """K12 at row counts around a warp and past one wave's spans, counts of
+    -5, W + 3 and 0 among them, many blocks and launches into one acc, and
+    the WordPiece slab's strided ids and count column."""
+    _need_cuda()
+    rng = np.random.default_rng(R)
+    W = 128
+    slab = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                         (R, W + 2), dtype=np.int32)).cuda()
+    counts = rng.integers(0, W + 1, R, dtype=np.int32)
+    counts[::4] = 0
+    counts[: min(R, 3)] = [-5, W + 3, W][: min(R, 3)]
+    slab[:, W] = torch.from_numpy(counts).cuda()
+    for ids, cnt in ((slab[:, :W].contiguous(), slab[:, W].contiguous()),
+                     (slab[:, :-2], slab[:, -2])):
+        want = mesh.finish_stats(mesh._shard_stats_plain(ids, cnt))
+        acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+        mesh.shard_stats(ids, cnt, acc)
+        assert mesh.finish_stats(acc) == want
+        acc.zero_()
+        half = R // 2
+        mesh.shard_stats(ids[:half], cnt[:half], acc)
+        mesh.shard_stats(ids[half:], cnt[half:], acc)
+        mesh.shard_stats(ids, cnt, acc)
+        total, chk = mesh.finish_stats(acc)
+        t2, c2 = mesh.finish_stats(2 * mesh._shard_stats_plain(ids, cnt))
+        assert (total, chk) == (t2, c2)
 
 
 @pytest.mark.parametrize("kind", ["gpt2", "spm", "xlnet"])
