@@ -334,6 +334,24 @@ def _bind_wp(lib) -> None:
         f.argtypes = args
 
 
+def _bind_api(lib) -> None:
+    """Signatures of the entry points api.py calls besides TextToIds and
+    WordHyphenationWithModel (runtime.cpp, the reference's C ABI)."""
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+    sigs = {
+        "TextToIdsWithOffsets": [P, S, I, P, P, P, I, I],
+        "TextToWordsWithModel": [S, I, S, I, P],
+        "TextToSentencesWithModel": [S, I, S, I, P],
+        "TextToWordsWithOffsetsWithModel": [S, I, S, P, P, I, P],
+        "TextToSentencesWithOffsetsWithModel": [S, I, S, P, P, I, P],
+        "TextToHashes": [S, I, P, I, I, I],
+    }
+    for name, args in sigs.items():
+        f = getattr(lib, name)
+        f.restype = I
+        f.argtypes = args
+
+
 def get_runtime():
     """ctypes handle to the native C-ABI runtime (TextToIds/Words/... family).
 
@@ -352,6 +370,8 @@ def get_runtime():
             lib.SetModel.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.FreeModel.restype = ctypes.c_int
             lib.FreeModel.argtypes = [ctypes.c_void_p]
+            lib.SetNoDummyPrefix.restype = ctypes.c_int
+            lib.SetNoDummyPrefix.argtypes = [ctypes.c_void_p, ctypes.c_bool]
             lib.TextToIds.restype = ctypes.c_int
             lib.TextToIds.argtypes = [
                 ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
@@ -368,6 +388,7 @@ def get_runtime():
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int,
             ]
+            _bind_api(lib)
             lib.SetCaseFoldTable.restype = None
             lib.SetCaseFoldTable.argtypes = [ctypes.c_void_p, ctypes.c_int]
             from ..runtime.casefold import tolower_table

@@ -23,11 +23,13 @@ on any world size.  ``init_group`` takes the place of
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from .. import kernels, native
 from ..ops import bpe as bpe_ops
@@ -58,6 +60,26 @@ def init_group(device: str | torch.device = "cuda", init_method: str | None = No
     group = dist.group.WORLD
     _check_backend(group, dev)
     return group
+
+
+def spawn_ranks(fn, args: tuple, world: int, timeout: float) -> None:
+    """Runs ``fn(rank, *args)`` in ``world`` spawned processes and waits
+    for them.  Raises if a rank fails, or kills every rank and raises when
+    they have not ended within ``timeout`` seconds (a rank that dies leaves
+    the others blocked in a collective)."""
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks did not end within "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
 
 
 def _check_backend(group, device: torch.device) -> None:

@@ -345,13 +345,17 @@ class SpTokenizer:
 
     def _native_fallback_handle(self):
         """The native runtime's handle of this model (runtime.cpp SetModel on
-        the model image: a model built in memory has no file to load), or
-        None when the runtime rejects the image (host.py:452-467)."""
+        the model image: a model built in memory has no file to load) with
+        the model's current no-dummy-prefix setting, or None when the
+        runtime rejects the image (host.py:452-467)."""
         if self._nfb is None:
             try:
                 self._nfb = native.set_model(self.model.ldb.image)
             except ValueError:
                 self._nfb = 0
+            else:
+                native.get_runtime().SetNoDummyPrefix(
+                    ctypes.c_void_p(self._nfb), bool(self.seg.no_dummy_prefix))
         return self._nfb or None
 
     def _fallback_ids(self, d: bytes, unk_id: int, c=None) -> list[int]:

@@ -1,7 +1,8 @@
-# Copy of blingfire_tpu/runtime/metrics.py (Counters and stage only; the
-# JAX profiler hook is dropped; Counters.oracle_docs and units_np_batches are
-# the port's).
-"""Observability: throughput counters and per-stage host timers."""
+# Port of blingfire_tpu/runtime/metrics.py (Counters.oracle_docs and
+# units_np_batches are the port's; profile_trace takes torch.profiler where
+# the JAX package takes jax.profiler).
+"""Observability: throughput counters, per-stage host timers and a
+torch.profiler trace capture."""
 
 from __future__ import annotations
 
@@ -69,3 +70,17 @@ def stage(name: str, counters: Counters | None = None):
         yield c
     finally:
         c.stage_seconds[name] += time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Capture a torch.profiler trace of the host and the card around the
+    block (metrics.py:69's counterpart) and write it as a Chrome trace,
+    ``<host>_<pid>.<time>.pt.trace.json``, into ``log_dir`` (view it in
+    chrome://tracing, Perfetto or TensorBoard).  Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

@@ -1204,29 +1204,15 @@ def dp_rank(rank: int, world: int, init_file: str, kind: str,
 def run_dp_ranks(kind: str, docs: list[bytes], world: int, out_dir: str,
                  timeout: float = 120.0) -> list[dict]:
     """Starts :func:`dp_rank` in ``world`` spawned processes and returns
-    each rank's results.  Raises if a rank fails, or kills every rank and
-    raises when they have not ended within ``timeout`` seconds (a rank that
-    dies leaves the others blocked in a collective)."""
+    each rank's results (parallel/mesh.py::spawn_ranks: a rank that fails
+    or a timeout raises)."""
     import os
-    import time
 
-    import torch.multiprocessing as mp
+    from .parallel import mesh
 
     init_file = os.path.join(out_dir, "init")
-    ctx = mp.start_processes(dp_rank, args=(world, init_file, kind, docs,
-                                            out_dir),
-                             nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{kind} ranks at world {world} did not "
-                                   f"end within {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    mesh.spawn_ranks(dp_rank, (world, init_file, kind, docs, out_dir), world,
+                     timeout)
     out = []
     for r in range(world):
         with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:

@@ -144,7 +144,20 @@ Phases, each of which must pass (any failure exits non-zero):
  29. kernels-dp K12 shard_stats against its plain version on main-dp's
               slabs (the WordPiece ones strided), beside its launch floor
               (the source with the kernel's body emptied, at the same
-              grid); tolerance 0.
+              grid); tolerance 0;
+ 30. main-api the product API as a user calls it: api.load_model(path) of
+              the gpt2-shaped model with the default device, then
+              text_to_ids_batch over the corpus, a first and a second call:
+              K1, K2 and K4 must launch and every document equal main's;
+              the xlnet- and bert-shaped models the same way over the first
+              4 MiB (K5 and K6, or K3 and K7, must launch; the ids equal
+              main-u's and main-w's); compat.text_to_words,
+              text_to_sentences and text_to_hashes of 500 sampled documents
+              against the native runtime; entry.entry() on the card (its
+              ids equal encode_batch's); entry.dryrun_multichip(1) in an
+              NCCL group of one process (K12 must launch); one
+              text_to_ids_batch call under runtime/metrics.py::profile_trace,
+              whose Chrome trace must hold a CUDA kernel event.
 The kernels, every one CUDA (kernels/csrc/, one nvcc a source), each
 launched through kernels.launch: K1 bpe_walk, K2 bpe_resolve, K3
 scatter_trie, K4 pack_out_compact, K5 unigram_walk, K6 unigram_viterbi, K7
@@ -169,6 +182,7 @@ the device.  Imports nothing of JAX or of blingfire_tpu.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import os
 import subprocess
@@ -1326,6 +1340,176 @@ def pack_host_ns(name: str, dedup, kernels, ids, sts, cnt, fb,
     return ns
 
 
+def run_api(blobs, docs, sub, want, native, kernels, metrics) -> None:
+    """Phase 30: the product API, its drop-in layer and the top-level
+    entry points as a user calls them.  ``blobs``: family (gpt2, xlnet, bert) ->
+    model image; ``want``: family -> (ids, bounds) of main, main-u and
+    main-w over ``docs`` (the first ``len(sub)`` for xlnet and bert)."""
+    import glob
+    import tempfile
+
+    from blingfire_tpu_torch import api, compat, entry
+
+    n_bytes = sum(map(len, docs))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for kind, blob in blobs.items():
+            paths[kind] = os.path.join(tmp, f"{kind}.bin")
+            with open(paths[kind], "wb") as f:
+                f.write(blob)
+        # the gpt2-shaped model over the whole corpus, the default device
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h = api.load_model(paths["gpt2"])
+        t_load = time.perf_counter() - t0
+        check(sum(kernels.launches.values()) == 0,
+              "api.load_model launched a kernel")
+        t0 = time.perf_counter()
+        got = h.text_to_ids_batch(docs)
+        t_first = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        again = h.text_to_ids_batch(docs)
+        t_second = time.perf_counter() - t0
+        check(again == got, "a second text_to_ids_batch gave other ids")
+        del again
+        for name in ("bpe_walk", "bpe_resolve", "pack_out_compact"):
+            check(launches.get(name, 0) > 0,
+                  f"kernel {name} never launched on main-api")
+        ids, bounds = want["gpt2"]
+        bad = [i for i in range(len(docs))
+               if got[i] != ids[bounds[i] : bounds[i + 1]].tolist()]
+        check(not bad, f"main-api: {len(bad)} docs differ from main's, first "
+              f"{bad[:5]}")
+        # the split of a call: the same tokenizer's pipelined flat call, and
+        # the per-document lists made from its flat ids
+        t0 = time.perf_counter()
+        f_ids, f_bounds = h._sp.encode_corpus_flat(docs)
+        t_flat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lists = [f_ids[f_bounds[i] : f_bounds[i + 1]].tolist()
+                 for i in range(len(docs))]
+        t_lists = time.perf_counter() - t0
+        check(lists == got, "encode_corpus_flat gave other ids")
+        del lists, f_ids, f_bounds
+        n_tok = sum(map(len, got))
+        log(f"[main-api] split: the same tokenizer's encode_corpus_flat "
+            f"{t_flat:.3f} s, the {len(docs)} lists from its flat ids "
+            f"{t_lists:.3f} s")
+        log(f"[main-api] api.load_model(gpt2-shaped) {t_load:.3f} s; "
+            f"text_to_ids_batch over {len(docs)} docs, {n_bytes} B: first "
+            f"call {t_first:.3f} s ({n_bytes / t_first:.0f} B/s, "
+            f"{n_tok / t_first:.0f} tokens/s; the tokenizer built in it), "
+            f"second {t_second:.3f} s ({n_bytes / t_second:.0f} B/s); peak "
+            f"device memory {peak} B; launches {launches}; the ids of all "
+            f"{len(docs)} docs equal main's")
+        del got
+        # the xlnet- and bert-shaped models over the first 4 MiB
+        for kind, unk, names in (
+                ("xlnet", 0, ("unigram_walk", "unigram_viterbi",
+                              "pack_out_compact")),
+                ("bert", WP_UNK, WP_MAIN)):
+            kernels.reset_launches()
+            hk = api.load_model(paths[kind])
+            t0 = time.perf_counter()
+            got = hk.text_to_ids_batch(sub, unk_id=unk)
+            t_k = time.perf_counter() - t0
+            run_k = dict(kernels.launches)
+            for name in names:
+                check(run_k.get(name, 0) > 0,
+                      f"kernel {name} never launched on main-api {kind}")
+            ids, bounds = want[kind]
+            check(got == [ids[bounds[i] : bounds[i + 1]].tolist()
+                          for i in range(len(sub))],
+                  f"main-api {kind}: other ids than the main run's")
+            log(f"[main-api] {kind}-shaped text_to_ids_batch over {len(sub)} "
+                f"docs (unk_id {unk}), first call {t_k:.3f} s; engine "
+                f"{type(hk._wp_dev or hk._sp).__name__}; launches {run_k}; "
+                f"the ids equal main-{'u' if kind == 'xlnet' else 'w'}'s")
+            del hk, got
+        # the drop-in layer on sampled documents, against the native runtime
+        rt = native.get_runtime()
+        rng = np.random.default_rng(0)
+        sample = rng.choice(len(docs), ORACLE_DOCS, replace=False)
+        t0 = time.perf_counter()
+        n_hash = 0
+        for i in sample:
+            d = docs[i]
+            words = compat.text_to_words(d)
+            check(words == (native.text_to_words(d) or ""),
+                  f"compat.text_to_words: doc {i} differs from the native "
+                  f"runtime")
+            check(compat.text_to_sentences(d)
+                  == (native.text_to_words(d, sentences=True) or ""),
+                  f"compat.text_to_sentences: doc {i} differs")
+            hashes = compat.text_to_hashes(words, 2, 2_000_000)
+            w = words.encode("utf-8")
+            arr = np.zeros(3 * len(w) + 16, np.int32)
+            n = rt.TextToHashes(w, len(w), arr.ctypes.data_as(ctypes.c_void_p),
+                                len(arr), 2, 2_000_000)
+            check(np.array_equal(hashes, arr[:n]),
+                  f"compat.text_to_hashes: doc {i} differs")
+            n_hash += n
+        log(f"[main-api] compat.text_to_words, text_to_sentences and "
+            f"text_to_hashes (bigrams, {n_hash} hashes) of {ORACLE_DOCS} "
+            f"sampled docs equal the native runtime's "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # the flagship's forward step
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fn, args = entry.entry()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e_ids, _st, _en, e_counts, e_fb = fn(*args)
+        torch.cuda.synchronize()
+        t_fn = time.perf_counter() - t0
+        run_e = dict(kernels.launches)
+        for name in ("bpe_walk", "bpe_resolve"):
+            check(run_e.get(name, 0) > 0, f"entry(): {name} never launched")
+        e_counts = e_counts.cpu()
+        e_ids = e_ids.cpu()
+        check(not e_fb.any().item()
+              and [e_ids[i, : e_counts[i]].tolist()
+                   for i in range(len(e_counts))]
+              == entry._flagship("cuda").encode_batch(entry.ENTRY_DOCS),
+              "entry(): other ids than encode_batch of the same documents")
+        log(f"[main-api] entry(): flagship built {t_init:.3f} s, fn(*args) "
+            f"{t_fn:.4f} s on rows {tuple(args[0].shape)}; launches {run_e}; "
+            f"ids equal encode_batch's")
+        # the data-parallel dry run, one NCCL rank
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = entry.dryrun_multichip(1, models=blobs)
+        t_dry = time.perf_counter() - t0
+        run_d = dict(kernels.launches)
+        check(run_d.get("shard_stats", 0) > 0,
+              "dryrun_multichip: K12 never launched")
+        log(f"[main-api] dryrun_multichip(1) (NCCL, one rank) {t_dry:.3f} s: "
+            f"{res}; launches {run_d}")
+        # one text_to_ids_batch call under profile_trace, retried once
+        for attempt in (1, 2):
+            log_dir = os.path.join(tmp, f"trace{attempt}")
+            t0 = time.perf_counter()
+            with metrics.profile_trace(log_dir):
+                h.text_to_ids_batch(sub)
+                torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+            files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+            check(len(files) == 1, f"profile_trace wrote {files}")
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+            n_kernel = sum(1 for e in events if e.get("cat") == "kernel")
+            log(f"[main-api] profile_trace of text_to_ids_batch over "
+                f"{len(sub)} docs (attempt {attempt}): {t_prof:.3f} s, "
+                f"{os.path.getsize(files[0])} B trace, {len(events)} events, "
+                f"{n_kernel} CUDA kernel events")
+            if n_kernel:
+                break
+        check(n_kernel > 0, "the trace holds no CUDA kernel event")
+
+
 def dp_kernels(slabs, mesh) -> dict:
     """Phase 29: K12 against its plain version on each (ids, counts) slab
     of main-dp (the WordPiece slabs strided), their times, byte bound and
@@ -1997,6 +2181,12 @@ def main() -> int:
     # ------------------------------------------------------ 29. kernels-dp
     stats.update(dp_kernels(slabs, mesh))
     del slabs
+
+    # --------------------------------------------------------- 30. main-api
+    run_api({"gpt2": blob, "xlnet": blob_u, "bert": blob_w}, docs, sub,
+            {k: (run["ids"], run["bounds"]) for k, run in (
+                ("gpt2", main), ("xlnet", main_u), ("bert", main_w))},
+            native, kernels, metrics)
 
     path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
                  ("wordpiece", main_wc), ("words", lex_runs["words"]),

@@ -1022,3 +1022,33 @@ def test_wp_one_launch_matches_plain_by_class(comb, depths):
                 h.tables, dnext, ow_perm, x, init, h._l_iw, h._r_iw, lw, n_f,
                 h._n_iws))
     assert torch.equal(out, torch.cat(want))
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("gpt2", ("bpe_walk", "bpe_resolve", "pack_out_compact")),
+    ("xlnet", ("unigram_walk", "unigram_viterbi", "pack_out_compact")),
+    ("bert", ("scatter_trie", "wp_subword_dense"))])
+def test_api_text_to_ids_batch_on_the_card(kind, want, tmp_path):
+    """api.load_model(path).text_to_ids_batch with the default device runs
+    the path's kernels on the card and gives the CPU's ids; building the
+    handle and a single-string call launch nothing."""
+    _need_cuda()
+    from blingfire_tpu_torch import api
+
+    blob = {"gpt2": lambda: testing.gpt2_shaped_model_bytes(2000, n_long=40),
+            "xlnet": lambda: testing.xlnet_shaped_model_bytes(4000,
+                                                              n_cjk=100),
+            "bert": lambda: testing.bert_shaped_model_bytes(2000)}[kind]()
+    p = tmp_path / f"{kind}.bin"
+    p.write_bytes(blob)
+    unk = testing.BERT_UNK if kind == "bert" else 0
+    docs = [d.encode("utf-8") for d in full_corpus()]
+    kernels.reset_launches()
+    h = api.load_model(str(p))
+    one = h.text_to_ids(docs[0], unk_id=unk)
+    assert sum(kernels.launches.values()) == 0
+    got = h.text_to_ids_batch(docs, unk_id=unk)
+    assert all(kernels.launches[k] > 0 for k in want), dict(kernels.launches)
+    cpu = api.load_model(str(p), device="cpu").text_to_ids_batch(docs,
+                                                                 unk_id=unk)
+    assert got == cpu and got[0] == one

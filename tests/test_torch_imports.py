@@ -37,7 +37,16 @@ new = {"blingfire_tpu_torch.ops.unigram", "blingfire_tpu_torch.ops.dfloat",
        "blingfire_tpu_torch.kernels", "blingfire_tpu_torch.runtime.metrics",
        "blingfire_tpu_torch.testing",
        # the data-parallel runners
-       "blingfire_tpu_torch.parallel", "blingfire_tpu_torch.parallel.mesh"}
+       "blingfire_tpu_torch.parallel", "blingfire_tpu_torch.parallel.mesh",
+       # the product API, its drop-in layer, the entry points and the
+       # host-only modules
+       "blingfire_tpu_torch.api", "blingfire_tpu_torch.compat",
+       "blingfire_tpu_torch.entry", "blingfire_tpu_torch.runtime.normalize",
+       "blingfire_tpu_torch.runtime.transforms",
+       "blingfire_tpu_torch.runtime.morph",
+       "blingfire_tpu_torch.compiler.fsmio",
+       "blingfire_tpu_torch.compiler.morphbin",
+       "blingfire_tpu_torch.tools", "blingfire_tpu_torch.tools.cli"}
 assert new <= set(names), names
 """
 
@@ -50,6 +59,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
+    from blingfire_tpu_torch import api, entry
     from blingfire_tpu_torch.ops import bpe, hyph, lexer, unigram
     from blingfire_tpu_torch.parallel import mesh
     from blingfire_tpu_torch.runtime.host import SpTokenizer
@@ -61,5 +71,6 @@ def test_entry_points_default_to_cuda():
                unigram.make_device_tables, WordPieceHybrid.__init__,
                lexer.make_device_tables, lexer.make_dense_sub,
                LexerTpu.__init__, hyph.make_device_tables,
-               HyphTpu.__init__, mesh.init_group):
+               HyphTpu.__init__, mesh.init_group, api.TokenizerHandle.__init__,
+               entry.entry, entry.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
