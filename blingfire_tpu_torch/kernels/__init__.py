@@ -51,7 +51,7 @@ KERNELS = {
                          [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P]
                          + [_I] * 8 + [_P]),
     "wp_subword_comb": ("wp_subword.cu", "bf_wp_subword_comb",
-                        [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+                        [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
                         + [_I] * 8 + [_P]),
     "lexer_pass": ("lexer_pass.cu", "bf_lexer_pass",
                    [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
@@ -88,11 +88,15 @@ PATHS = {
         "pack_out_compact": "cuda",
     },
     # the comb pass runs only for a sub-grammar too large for the dense table
+    # (on this path when it is declined by force)
     "wordpiece": {
         "scatter_trie": "cuda",
         "wp_subword_dense": "cuda",
         "wp_subword_comb": "cuda",
     },
+    # a WordPiece model whose dense table make_dense_sub declines (a
+    # multilingual vocabulary): the comb pass alone
+    "wordpiece_comb": {"wp_subword_comb": "cuda"},
     # the pattern lexer: TextToWords, TextToSentences, WordPieceTpu
     "words": {"lexer_pass": "cuda"},
     "sentences": {"lexer_pass": "cuda"},

@@ -6,13 +6,21 @@
 // a step in the dense finals-first table dnext[state * A + c] (a final is
 // ns < n_f), then one ow_perm gather at the deepest final.  K8 replaces
 // wp_subword_pass (lexer.py:353-443): the comb walk, five gathers a step
-// (base, owner, nxt, final, moore_ow); the main path takes it only when
-// make_dense_sub declines the dense table.  Both end in wp_emit.cuh.
+// there (base, owner, nxt, final, moore_ow), each waiting on the one
+// before.  K8 reads chained slot records instead (ops/lexer.py::comb_chain,
+// int4 (owner, nxt, base[nxt], final[nxt]) a slot), so a step is one
+// dependent 16-byte load: the slot's owner decides the hit, and the same
+// record carries the next state, whether it is final and the base of the
+// next step's slot.  A start's base comes once from K9's state record
+// (base, final, Moore Ow, 0), as does the Moore Ow of its deepest final.
+// The main path takes K8 when make_dense_sub declines the dense table (a
+// multilingual vocabulary: thousands of symbols).  Both end in
+// wp_emit.cuh.
 //
 // One launch takes a batch's rows of both unit-length classes: rows below
 // `split` walk lw steps at most, the others lw_hi.  One warp a row, kRows
 // rows a block and no block barrier; a thread walks the row's positions
-// lane + 32k (k < 4) in lockstep, so their gathers are in flight together,
+// lane + 32k (k < 4) in lockstep, so their loads are in flight together,
 // and a start stops at its first dead state (the JAX walk carries -1 from
 // there on).  XLA clamps every gather silently and CUDA does not, so each
 // clamp is explicit: the dense flat index to [0, top] (lexer.py:273-276), a
@@ -30,7 +38,8 @@
 // dense table of a bert-sized vocabulary is tens of MB, near the 50 MB L2,
 // so a walk is a chain of L2 (or DRAM) round trips: a row takes as long as
 // its longest walk, and one launch puts every row of a batch in flight at
-// once.
+// once.  The comb records are a few MB and stay in L2: K8's step is one
+// L2 round trip.
 
 #include "wp_emit.cuh"
 
@@ -52,10 +61,12 @@ struct Row {
     int32_t* out;  // (B, M + 2)
 };
 
-// A table's lockstep step: the next state of each of a thread's starts
-// from state st[k] on symbol c[k] (-1: none; a dead start or a padding
-// symbol has none), its gathers for the kPer starts issued together; a
-// final; and the Moore Ow of the deepest final, gathered once.
+// A table's lockstep step: the next state ns[k] of each of a thread's
+// starts from state st[k] on symbol c[k] (-1: none; a dead start or a
+// padding symbol has none) and whether it is final, the loads for the kPer
+// starts issued together; carry[k] is what a table keeps of a start between
+// steps (the comb: its state's base; set by start()).  And the Moore Ow of
+// the deepest final, gathered once.
 struct Dense {
     const int32_t* dnext;
     int64_t top;  // dnext entries - 1
@@ -64,19 +75,20 @@ struct Dense {
     int n_f;
     int n_a;
 
+    __device__ __forceinline__ int32_t start(int32_t) const { return 0; }
     __device__ __forceinline__ void step(const int32_t (&st)[kPer],
                                          const int32_t (&c)[kPer],
-                                         int32_t (&ns)[kPer]) const {
+                                         int32_t (&)[kPer],
+                                         int32_t (&ns)[kPer],
+                                         bool (&fin)[kPer]) const {
 #pragma unroll
-        for (int k = 0; k < kPer; ++k)
+        for (int k = 0; k < kPer; ++k) {
             ns[k] = st[k] >= 0 && c[k] >= 0
                         ? __ldg(dnext + clamp64((int64_t)st[k] * n_a + c[k],
                                                 0, top))
                         : -1;
-    }
-    // finals are numbered first
-    __device__ __forceinline__ bool is_final(int32_t ns) const {
-        return ns >= 0 && ns < n_f;
+            fin[k] = ns[k] >= 0 && ns[k] < n_f;  // finals are numbered first
+        }
     }
     __device__ __forceinline__ int32_t ow_of(int32_t fin) const {
         return fin >= 0 ? __ldg(ow_perm + clamp64(fin, 0, n_ow - 1)) : -1;
@@ -84,39 +96,42 @@ struct Dense {
 };
 
 struct Comb {
-    const int32_t* base;
-    const int32_t* owner;
-    const int32_t* nxt;
-    const uint8_t* final_;
-    const int32_t* moore_ow;
+    const int4* chain;      // (owner, nxt, base[nxt], final[nxt]) a slot
+    const int4* state_rec;  // (base, final, moore_ow, 0) a state
     int n_states;
     int n_slots;
 
+    __device__ __forceinline__ const int32_t* state(int32_t s) const {
+        return reinterpret_cast<const int32_t*>(
+            state_rec + clamp64(s, 0, n_states - 1));
+    }
+    __device__ __forceinline__ int32_t start(int32_t s) const {
+        return s >= 0 ? __ldg(state(s)) : 0;
+    }
     __device__ __forceinline__ void step(const int32_t (&st)[kPer],
                                          const int32_t (&c)[kPer],
-                                         int32_t (&ns)[kPer]) const {
-        int64_t raw[kPer];
+                                         int32_t (&base)[kPer],
+                                         int32_t (&ns)[kPer],
+                                         bool (&fin)[kPer]) const {
         bool in[kPer];
+        int4 rec[kPer];
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-            const bool live = st[k] >= 0 && c[k] >= 0;
-            raw[k] = live ? (int64_t)__ldg(base + clamp64(st[k], 0,
-                                                          n_states - 1)) + c[k]
-                          : -1;
+            const int64_t raw = (int64_t)base[k] + c[k];
             // no transition outside the slot array (ops/lexer.py::comb_lookup)
-            in[k] = live && raw[k] >= 0 && raw[k] < n_slots;
+            in[k] = st[k] >= 0 && c[k] >= 0 && raw >= 0 && raw < n_slots;
+            rec[k] = in[k] ? __ldg(chain + raw) : make_int4(-1, -1, 0, 0);
         }
 #pragma unroll
-        for (int k = 0; k < kPer; ++k)
-            in[k] = in[k] && __ldg(owner + raw[k]) == st[k];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) ns[k] = in[k] ? __ldg(nxt + raw[k]) : -1;
-    }
-    __device__ __forceinline__ bool is_final(int32_t ns) const {
-        return ns >= 0 && __ldg(final_ + clamp64(ns, 0, n_states - 1)) != 0;
+        for (int k = 0; k < kPer; ++k) {
+            const bool hit = in[k] && rec[k].x == st[k];
+            ns[k] = hit ? rec[k].y : -1;
+            fin[k] = hit && rec[k].w != 0;
+            base[k] = rec[k].z;
+        }
     }
     __device__ __forceinline__ int32_t ow_of(int32_t fin) const {
-        return fin >= 0 ? __ldg(moore_ow + clamp64(fin, 0, n_states - 1)) : -1;
+        return fin >= 0 ? __ldg(state(fin) + 2) : -1;
     }
 };
 
@@ -130,11 +145,12 @@ __device__ __forceinline__ void walk(const T& t, const Row& r, int lw,
                                      int32_t (&fin_pos)[kPer],
                                      int32_t (&fin_ow)[kPer]) {
     const int lane = threadIdx.x & 31;
-    int32_t st[kPer], fin[kPer];
+    int32_t st[kPer], carry[kPer], last[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
         st[k] = go[k] ? init[k] : -1;
-        fin[k] = -1;
+        carry[k] = t.start(st[k]);
+        last[k] = -1;
         fin_pos[k] = -1;
     }
     for (int d = 0; d < lw; ++d) {
@@ -143,22 +159,23 @@ __device__ __forceinline__ void walk(const T& t, const Row& r, int lw,
         for (int k = 0; k < kPer; ++k) live |= st[k] >= 0;
         if (!live) break;
         int32_t c[kPer], ns[kPer];
+        bool fin[kPer];
 #pragma unroll
         for (int k = 0; k < kPer; ++k)
             c[k] = st[k] >= 0 ? xs[32 * k + lane + d] : -1;
-        t.step(st, c, ns);
+        t.step(st, c, carry, ns, fin);
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
             if (d >= r.max_tok && c[k] != r.r_iw) ns[k] = -1;
-            if (t.is_final(ns[k])) {
+            if (ns[k] >= 0 && fin[k]) {
                 fin_pos[k] = 32 * k + lane + d;
-                fin[k] = ns[k];
+                last[k] = ns[k];
             }
             st[k] = ns[k];
         }
     }
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) fin_ow[k] = t.ow_of(fin[k]);
+    for (int k = 0; k < kPer; ++k) fin_ow[k] = t.ow_of(last[k]);
 }
 
 template <class T>
@@ -243,13 +260,15 @@ extern "C" int bf_wp_subword_dense(
 }
 
 extern "C" int bf_wp_subword_comb(
-    const int32_t* base, const int32_t* owner, const int32_t* nxt,
-    const uint8_t* final_, const int32_t* moore_ow, int n_states, int n_slots,
+    const int32_t* chain, const int32_t* state_rec, int n_states, int n_slots,
     const int32_t* act_right, const int32_t* act_tag, const int32_t* act_fn,
     int n_acts, const int32_t* x, const int32_t* init, int B, int M, int l_iw,
     int r_iw, int lw, int split, int lw_hi, int max_tok, int32_t* out,
     void* stream) {
-    const Comb t{base, owner, nxt, final_, moore_ow, n_states, n_slots};
+    if (((uintptr_t)chain | (uintptr_t)state_rec) & 15)
+        return (int)cudaErrorMisalignedAddress;
+    const Comb t{reinterpret_cast<const int4*>(chain),
+                 reinterpret_cast<const int4*>(state_rec), n_states, n_slots};
     const Row r{x, init, B, M, l_iw, r_iw, lw, split, lw_hi, max_tok, out};
     const wp::Actions a{act_right, act_tag, act_fn, n_acts};
     return launch(wp_subword_comb_kernel, t, r, a, (cudaStream_t)stream);

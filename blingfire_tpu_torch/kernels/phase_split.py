@@ -45,14 +45,17 @@ one uncached 4 MiB batch in the dense, wide and comb table modes, and on
 main-ww's launches (304 rows of 1,024), each equal to the plain version;
 the walk's live lane-steps against all B * N * L.
 
-K7 and K8: the bert-shaped model's packed rows of both unit-length
-classes of one uncached 4 MiB batch, as chip_smoke.py's kernels-w packs
-them: events and device ms of the batch in one launch (as the hybrid
-launches it), equal to the plain version; for K7 also each class alone
-(as the data-parallel runner launches a slab), with markers K7's phase
-shares and the cycles of the row each block's thread 0 runs; the visited
-chain's hops a row against the row's 128 lanes, and the walk's live
-lane-steps.
+K7 and K8: the packed rows of both unit-length classes of one uncached
+4 MiB batch, as chip_smoke.py's kernels-w packs them, of the bert-shaped
+model's dense pass (K7, main-w) and comb pass (K8, main-wc: the dense
+table declined by force) and of the multilingual-bert-shaped model's comb
+pass (K8, main-wm: declined by the cap; and on one 4 MiB batch of its own
+multilingual traffic, testing.mbert_docs): events and device ms of the
+batch in one launch (as the hybrid launches it), equal to the plain
+version, with markers each phase's share and the cycles of the row each
+block's thread 0 runs; for K7 also each class alone (as the data-parallel
+runner launches a slab); the visited chain's hops a row and the walk's
+live lane-steps.
 
 K10: the rows of chip_smoke.py's kernels-h (the syllab-shaped model on
 the distinct words of the 32 MiB corpus and the edge words, one segment
@@ -628,9 +631,12 @@ def k5_split(sources, dev, results) -> None:
 
 
 def k7_rows(dev):
-    """[(hybrid, x, init, class_rows)] of the dense pass (K7) and the comb
-    pass (K8): the bert-shaped model's packed rows of one uncached
-    CMP_BYTES batch, as chip_smoke.py's kernels-w packs them."""
+    """[(label, hybrid, x, init, class_rows)]: the packed rows of one
+    uncached CMP_BYTES batch of the bert-shaped model's dense pass (K7,
+    main-w) and comb pass (K8, main-wc: the dense table declined by force),
+    as chip_smoke.py's kernels-w packs them, and of the multilingual-bert-
+    shaped model, whose dense table the hybrid declines by itself (K8,
+    main-wm), also on a batch of its own multilingual traffic."""
     import torch
 
     from blingfire_tpu_torch import testing
@@ -646,13 +652,21 @@ def k7_rows(dev):
         hyb_c = WordPieceHybrid(model, device=dev)
     finally:
         lexer_ops.DENSE_MAX_ENTRIES = saved
-    nh, u_syms, u_soff, u_fn = hyb._analyze(
-        measure.corpus_prefix(_corpus(), measure.CMP_BYTES))
-    hyb._rt.BtlWpFree(nh)
+    hyb_m = WordPieceHybrid(load_bytes(testing.mbert_shaped_model_bytes()),
+                            device=dev)
+    measure.check(hyb_m._dense is None, "the mbert-shaped model kept its "
+                  "dense table")
+    sub = measure.corpus_prefix(_corpus(), measure.CMP_BYTES)
+    ml = testing.mbert_docs(measure.CMP_BYTES)
     out = []
-    for h in (hyb, hyb_c):
+    for label, h, a, docs in (("main-w", hyb, hyb, sub),
+                              ("main-wc", hyb_c, hyb, sub),
+                              ("main-wm", hyb_m, hyb_m, sub),
+                              ("multilingual", hyb_m, hyb_m, ml)):
+        nh, u_syms, u_soff, u_fn = a._analyze(docs)
+        a._rt.BtlWpFree(nh)
         px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
-        out.append((h, torch.from_numpy(px).to(dev),
+        out.append((label, h, torch.from_numpy(px).to(dev),
                     torch.from_numpy(pinit).to(dev), class_rows))
     return out
 
@@ -675,30 +689,37 @@ def _wp_plain(h, x, init, lw: int, r):
                                   reads=r), skip)
 
 
+def _k7_builds(label: str, path: str):
+    """(fns, stamped copies {kernel name: ((fns, setter), phases)}) of one
+    source, whose entry points take the checkout's arguments."""
+    text = read_source(path, "bf_wp_subword_dense")
+    entries = _own("wp_subword_dense") | _own("wp_subword_comb")
+    fns, _ = build(f"k7_{label}", text, entries, False)
+    stamped = {}
+    for name in ("wp_subword_dense", "wp_subword_comb"):
+        stext, phases = instrument(text, f"{name}_kernel")
+        if len(phases) > 1:  # phase markers: a stamped copy too
+            stamped[name] = (build(f"k7_{label}_{name}", stext, entries,
+                                   True), phases)
+    return fns, stamped
+
+
 def k7_split(sources, dev, results) -> None:
     import torch
 
     from blingfire_tpu_torch import kernels
     from blingfire_tpu_torch.ops import lexer as lexer_ops
 
-    names = ("wp_subword_dense", "wp_subword_comb")
-    kernels._load(names[0])
+    kernels._load("wp_subword_dense")
     built = {}
     for label, path in sources:
-        text = read_source(path, "bf_wp_subword_dense")
-        entries = _own(names[0]) | _own(names[1])
-        fns, _ = build(f"k7_{label}", text, entries, False)
-        stext, phases = instrument(text, "wp_subword_dense_kernel")
-        stamped = None
-        if len(phases) > 1:  # phase markers: a stamped copy too
-            stamped = (*build(f"k7_{label}_stamped", stext, entries, True),
-                       phases)
-        built[label] = (fns, stamped)
-        results[f"k7:{label}"] = {"source": path,
-                                  "phases": phases if stamped else None,
-                                  "classes": [], "batch": {}}
-    for h, x, init, class_rows in k7_rows(dev):
-        name = names[h._dense is None]
+        built[label] = _k7_builds(label, path)
+        results[f"k7:{label}"] = {
+            "source": path,
+            "phases": {n: v[1] for n, v in built[label][1].items()},
+            "classes": [], "batch": {}}
+    for batch_label, h, x, init, class_rows in k7_rows(dev):
+        name = "wp_subword_comb" if h._dense is None else "wp_subword_dense"
         B, M = x.shape
         classes = [(lo, hi, lw) for lo, hi, lw in class_rows if hi > lo]
         plain = []
@@ -709,68 +730,58 @@ def k7_split(sources, dev, results) -> None:
                 (hi - lo,), M, dtype=torch.int32, device=dev)).sum(1).double()
             plain.append((want, hops, r.steps))
         want_all = torch.cat([p[0] for p in plain])
+        hops_all = torch.cat([p[1] for p in plain])
         out = torch.empty((B, M + 2), dtype=torch.int32, device=dev)
 
         def batch():
             h._passes(x, init, class_rows, out)
+            return out
 
         for label, (fns, stamped) in built.items():
             res = results[f"k7:{label}"]
             with swapped(fns):
+                out.fill_(-7)
                 batch()
                 torch.cuda.synchronize()
                 measure.check(torch.equal(out, want_all), f"k7 {label}: "
-                              f"{name} differs from the plain version")
-                st = measure.new_stats((name,), "probe")
-                measure.profiled_device_ms(batch, st)
-                res["batch"][name] = {
-                    "rows": B, "ms": measure.cuda_ms(batch, 50),
-                    "device_ms": st[(name, "probe")]["device_ms"]}
-                measure.log(f"[k7 {label}] {name}: a 4 MiB batch, {B} rows "
-                            f"of {M} over {len(classes)} classes: "
-                            f"{res['batch'][name]}")
-                if name != names[0]:  # K8 runs in the one launch only
-                    continue
-                for (lo, hi, lw), (want, hops, steps) in zip(classes, plain):
-                    oc = out[lo:hi]
+                              f"{name} differs from the plain version on "
+                              f"{batch_label}")
+                ms, dms = _times(batch, name, 50)
+            row = {"pass": name, "rows": B, "classes": [
+                (hi - lo, lw) for lo, hi, lw in classes], "ms": ms,
+                "device_ms": dms, "hops_mean": float(hops_all.mean()),
+                "live_lane_steps": sum(p[2] for p in plain)}
+            if name in stamped:
+                row.update(_stamp_shares(stamped[name], (B + 3) // 4,
+                                         batch, want_all))
+            res["batch"][batch_label] = row
+            measure.log(f"[k7 {label}] {batch_label} {name}: a 4 MiB batch "
+                        f"in one launch: " + json.dumps(row))
+            if name != "wp_subword_dense":  # K8 runs in the one launch only
+                continue
+            for (lo, hi, lw), (want, hops, steps) in zip(classes, plain):
+                oc = out[lo:hi]
 
-                    def one(lo=lo, hi=hi, lw=lw, oc=oc):
-                        h._passes(x[lo:hi], init[lo:hi], [(0, hi - lo, lw)],
-                                  oc)
+                def one(lo=lo, hi=hi, lw=lw, oc=oc):
+                    h._passes(x[lo:hi], init[lo:hi], [(0, hi - lo, lw)], oc)
+                    return oc
 
-                    st = measure.new_stats((name,), "probe")
-                    measure.profiled_device_ms(one, st)
-                    row = {"pass": name, "lw": lw, "rows": hi - lo,
-                           "width": M, "ms": measure.cuda_ms(one, 50),
-                           "device_ms": st[(name, "probe")]["device_ms"],
-                           "hops_mean": float(hops.mean()),
-                           "hops_max": float(hops.max()),
-                           "live_lane_steps": steps}
-                    if stamped:
-                        sfns, setter, phases = stamped
-                        clk = torch.zeros((hi - lo, len(phases)),
-                                          dtype=torch.int64, device=dev)
-                        measure.check(setter(clk.data_ptr()) == 0,
-                                      "cudaMemcpyToSymbol of the stamp "
-                                      "buffer failed")
-                        with swapped(sfns):
-                            one()
-                            torch.cuda.synchronize()
-                            measure.check(torch.equal(oc, want),
-                                          f"k7 {label}'s stamped copy "
-                                          f"differs")
-                            clk = clk.cpu().double()
-                            row["ms_stamped"] = measure.cuda_ms(one, 10)
-                        # thread 0 of a block stamps its own row: the rows
-                        # stamped are the blocks
-                        tot = clk.sum(0)
-                        n = int((clk != 0).any(1).sum())
-                        row["share"] = {p: float(c / tot.sum())
-                                        for p, c in zip(phases, tot)}
-                        row["cycles_a_row"] = {p: float(c) / n
-                                               for p, c in zip(phases, tot)}
-                    res["classes"].append(row)
-                    measure.log(f"[k7 {label}] " + json.dumps(row))
+                with swapped(fns):
+                    one()
+                    torch.cuda.synchronize()
+                    measure.check(torch.equal(oc, want), f"k7 {label}: a "
+                                  f"class differs")
+                    ms, dms = _times(one, name, 50)
+                row = {"pass": name, "lw": lw, "rows": hi - lo, "width": M,
+                       "ms": ms, "device_ms": dms,
+                       "hops_mean": float(hops.mean()),
+                       "hops_max": float(hops.max()),
+                       "live_lane_steps": steps}
+                if name in stamped:
+                    row.update(_stamp_shares(stamped[name],
+                                             (hi - lo + 3) // 4, one, want))
+                res["classes"].append(row)
+                measure.log(f"[k7 {label}] " + json.dumps(row))
 
 
 def hollow(src: str, kernel: str) -> str:
@@ -805,9 +816,11 @@ def _times(call, name: str, reps: int) -> tuple[float, float]:
 
 
 def _stamp_shares(stamped, blocks: int, call, want) -> dict:
-    """Each phase's share of the stamped blocks' cycles: ``stamped`` is
-    ((fns, setter), phases) of a stamped build; ``call`` launches at most
-    ``blocks`` blocks and must return ``want``."""
+    """Each phase's share of the stamped blocks' cycles ("share") and its
+    cycles a block that stamped ("cycles_a_block": thread 0's, which in
+    K7 and K8 walks the block's first row): ``stamped`` is ((fns, setter),
+    phases) of a stamped build; ``call`` launches at most ``blocks`` blocks
+    and must return ``want``."""
     import torch
 
     (fns, setter), phases = stamped
@@ -818,8 +831,12 @@ def _stamp_shares(stamped, blocks: int, call, want) -> dict:
         got = call()
         torch.cuda.synchronize()
     measure.check(torch.equal(got, want), "the stamped copy differs")
-    tot = clk.cpu().double().sum(0)
-    return {p: float(c / tot.sum()) for p, c in zip(phases, tot)}
+    clk = clk.cpu().double()
+    tot = clk.sum(0)
+    n = int((clk != 0).any(1).sum())
+    return {"share": {p: float(c / tot.sum()) for p, c in zip(phases, tot)},
+            "cycles_a_block": {p: float(c) / n
+                               for p, c in zip(phases, tot)}}
 
 
 def k10_rows(dev):
@@ -891,7 +908,7 @@ def k10_split(sources, dev, results) -> None:
                 row["floor_ms"], row["floor_device_ms"] = _times(
                     call, "hyph_segment", 20)
             if b["stamped"]:
-                row["share"] = _stamp_shares(b["stamped"], B, call, want)
+                row.update(_stamp_shares(b["stamped"], B, call, want))
             res["buckets"].append(row)
             measure.log(f"[k10 {label}] " + json.dumps(row))
         if "hyph_segment_packed" not in b["kernel"]:
@@ -919,8 +936,8 @@ def k10_split(sources, dev, results) -> None:
             row["floor_ms"], row["floor_device_ms"] = _times(
                 packed, "hyph_segment", 20)
         if b["stamped"]:
-            row["share"] = _stamp_shares(b["stamped"], pk.n_tiles, packed,
-                                         want)
+            row.update(_stamp_shares(b["stamped"], pk.n_tiles, packed,
+                                     want))
         res["packed"] = row
         measure.log(f"[k10 {label}] one launch: " + json.dumps(row))
 

@@ -20,8 +20,9 @@ Two passes, each beside its plain PyTorch version:
   column 128, the layout native ``BtlWpStitch`` reads:
   ``wp_subword_pass_dense`` (K7, ``kernels/csrc/wp_subword.cu``) walks the
   dense finals-first table of :func:`make_dense_sub`, one gather a step;
-  ``wp_subword_pass`` (K8, same source) walks the comb table, used when
-  :func:`make_dense_sub` declines the dense table, which it otherwise
+  ``wp_subword_pass`` (K8, same source) walks the comb table through its
+  chained slot records (:func:`comb_chain`), one 16-byte load a step, used
+  when :func:`make_dense_sub` declines the dense table, which it otherwise
   scatters on the card with K3 (``ops/bpe.py::scatter_trie``, the
   computation of ``_scatter_dense``).  Either takes the rows of both of
   the hybrid's length classes in one launch, each at its own walk depth,
@@ -37,6 +38,7 @@ on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -74,6 +76,13 @@ class LexerDeviceTables:
     any_iw: int  # dense id of IW_ANY
     n_slots: int
     max_token_length: int
+
+    @functools.cached_property
+    def chain(self) -> torch.Tensor:
+        """K8's chained slot records (:func:`comb_chain`), built on the
+        tables' device at the first comb launch and kept: tables whose
+        dense sub-grammar is kept never pay for them."""
+        return comb_chain(self)
 
 
 def make_device_tables(table: CombTable, moore_ow, acts: dict,
@@ -213,6 +222,22 @@ def make_dense_sub(table: CombTable, moore_ow, fn_inis: list[int],
     dnext = scatter_trie(torch.from_numpy(idx).to(device),
                          torch.from_numpy(vals).to(device), int(size))
     return dnext, torch.from_numpy(ow_perm).to(device), perm, n_f, n_reach
+
+
+def comb_chain(t: LexerDeviceTables) -> torch.Tensor:
+    """K8's chained slot records, int32 (n_slots, 4) on the tables' device:
+    (owner, nxt, base[nxt], final[nxt]) of each slot, so that one 16-byte
+    load a step gives the transition, whether it ends in a final and where
+    the next step's slots start.  A slot with no transition (nxt < 0: an
+    explicitly DEAD one) is (owner, -1, 0, 0), an empty slot (-1, -1, 0,
+    0).  The state index is clamped as the plain walk clamps it."""
+    nxt = torch.where(t.owner >= 0, t.nxt, -1)
+    live = nxt >= 0
+    ns = nxt.clamp(0, t.base.numel() - 1).long()
+    return torch.stack([t.owner, nxt,
+                        torch.where(live, t.base[ns], 0),
+                        (live & t.final[ns]).to(torch.int32)],
+                       1).contiguous()
 
 
 # ----------------------------------------------------------- plain versions
@@ -593,7 +618,10 @@ def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
                     tail: tuple[int, int] | None = None) -> torch.Tensor:
     """The sub-token pass with the comb walk (K8): the same contract as
     :func:`wp_subword_pass_dense`, with init_lanes in the comb's own state
-    numbering.  Replaces lexer.py::wp_subword_pass."""
+    numbering.  On the card it reads the tables' chained slot records
+    (``tables.chain``, built at the first launch) and ``state_rec``; the
+    plain version reads the comb arrays.  Replaces
+    lexer.py::wp_subword_pass."""
     if not kernels.on_card(x):
         return _plain_into(_by_class(
             lambda xs, ins, depth: _pass_comb_plain(
@@ -602,16 +630,18 @@ def wp_subword_pass(tables: LexerDeviceTables, x: torch.Tensor,
     B, M = x.shape
     tail = tail or (B, lw)
     out = _check_rows(tables, x, init_lanes, lw, tail, out)
+    chain = tables.chain
+    n_states = tables.state_rec.shape[0]
+    kernels.check(tables.state_rec, torch.int32, (n_states, 4), "state_rec")
     if B:
         kernels.launch(
             "wp_subword_comb", x.device,
-            tables.base.data_ptr(), tables.owner.data_ptr(),
-            tables.nxt.data_ptr(), tables.final.data_ptr(),
-            tables.moore_ow.data_ptr(), tables.base.numel(), tables.n_slots,
-            tables.act_right.data_ptr(), tables.act_tag.data_ptr(),
-            tables.act_fn.data_ptr(), tables.act_right.numel(),
-            x.data_ptr(), init_lanes.data_ptr(), B, M, l_iw, r_iw, lw,
-            tail[0], tail[1], tables.max_token_length, out.data_ptr(),
+            chain.data_ptr(), tables.state_rec.data_ptr(), n_states,
+            tables.n_slots, tables.act_right.data_ptr(),
+            tables.act_tag.data_ptr(), tables.act_fn.data_ptr(),
+            tables.act_right.numel(), x.data_ptr(), init_lanes.data_ptr(), B,
+            M, l_iw, r_iw, lw, tail[0], tail[1], tables.max_token_length,
+            out.data_ptr(),
         )
     return out
 

@@ -19,7 +19,10 @@ unique-unit device path.  The corpus draws Zipfian words from the same word
 list, adds rare words, punctuation and long punctuation runs, and includes
 the edge cases of tests/corpus.py (copied below).  The bert-shaped
 WordPiece model (:func:`bert_shaped_model_bytes`) covers the corpus's word
-list with whole words, prefixes and ``##`` pieces.  The syllab-shaped W2H
+list with whole words, prefixes and ``##`` pieces; the
+multilingual-bert-shaped one (:func:`mbert_shaped_model_bytes`) adds
+scripts and seeded CJK ideographs, so that the hybrid declines its dense
+table.  The syllab-shaped W2H
 hyphenation model (:func:`syllab_shaped_model_bytes`) is built from seeded
 patterns with syllab.bin's settings; :func:`corpus_words` turns the corpus
 into its traffic.  The SentencePiece-BPE-shaped model
@@ -759,6 +762,128 @@ def bert_shaped_model_bytes(n: int = BERT_VOCAB, seed: int = 0) -> bytes:
 
     return compile_wordpiece_model(bert_shaped_vocab(n, seed), BERT_GRAMMAR,
                                    dict(BERT_TAGSET))
+
+
+MBERT_VOCAB = 119547  # bert-base-multilingual-cased's vocab.txt
+MBERT_CJK = 1500  # seeded ideographs: the dense table passes its cap
+MBERT_WORDS = 60000  # word_list draws: the first MBERT_WHOLE_WORDS whole
+MBERT_WHOLE_WORDS = 40000
+
+
+def mbert_alphabet(seed: int = 0, n_cjk: int = MBERT_CJK) -> list[int]:
+    """The xlnet-shaped alphabet (Latin, Latin-1, the script ranges and
+    ``n_cjk`` seeded ideographs of U+4E00-U+9FFF) joined with the
+    bert-shaped one, below U+10000."""
+    rng = np.random.default_rng(seed + 3)
+    return sorted(c for c in set(_xlnet_alphabet(rng, n_cjk))
+                  | set(_bert_alphabet()) if c < 0x10000)
+
+
+def mbert_shaped_vocab(n: int = MBERT_VOCAB, seed: int = 0,
+                       n_cjk: int = MBERT_CJK) -> list[str]:
+    """``n`` vocabulary lines laid out as bert-base-multilingual-cased's:
+    [PAD], [unused1..99], [UNK] (100), [CLS], [SEP], [MASK]; every
+    character of :func:`mbert_alphabet` alone and as a ``##`` piece;
+    numbers 10..999 and ``##`` pairs of digits; the MBERT_WHOLE_WORDS most
+    frequent of MBERT_WORDS words whole; then prefixes of 2-4 characters
+    and ``##`` endings of 2-4 characters of every word, until ``n``
+    lines."""
+    lines = (["[PAD]"] + [f"[unused{i}]" for i in range(1, BERT_UNK)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    seen = set(lines)
+
+    def add(s: str) -> None:
+        if len(lines) < n and s not in seen:
+            seen.add(s)
+            lines.append(s)
+
+    alphabet = [chr(c) for c in mbert_alphabet(seed, n_cjk)]
+    for c in alphabet:
+        add(c)
+    for c in alphabet:
+        add("##" + c)
+    for v in range(10, 1000):
+        add(str(v))
+    for v in range(100):
+        add(f"##{v:02d}")
+    words = [w.decode() for w in word_list(seed, MBERT_WORDS)]
+    for w in words[:MBERT_WHOLE_WORDS]:
+        add(w)
+    for w in words:
+        for k in (2, 3, 4):
+            if len(w) > k:
+                add(w[:k])
+                add("##" + w[-k:])
+        if len(lines) >= n:
+            break
+    assert len(lines) == n, f"only {len(lines)} vocabulary lines"
+    return lines
+
+
+def mbert_shaped_model_bytes(n: int = MBERT_VOCAB, seed: int = 0,
+                             n_cjk: int = MBERT_CJK) -> bytes:
+    """Compiled .bin image of a multilingual-bert-shaped WordPiece model:
+    :func:`mbert_shaped_vocab` under BERT_GRAMMAR (each ideograph a word of
+    its own, as BERT's Chinese-character split makes it), compiled as
+    :func:`bert_shaped_model_bytes` is.  It stands in for
+    bert_multi_cased.bin, which is not in the repository.  The image is
+    cached under ``build/blingfire_tpu_torch/fixtures/``, keyed by the
+    arguments and the compiler's and this module's sources: the full size
+    compiles in about 100 s."""
+    import glob
+    import os
+
+    from .buildutil import PKG_DIR, build_dir, source_tag
+    from .compiler.wordpiece import compile_wordpiece_model
+
+    tag = source_tag(__file__, *sorted(glob.glob(
+        os.path.join(PKG_DIR, "compiler", "*.py"))))
+    path = os.path.join(build_dir("fixtures"),
+                        f"mbert-{n}-{seed}-{n_cjk}.{tag}.bin")
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return f.read()
+    blob = compile_wordpiece_model(mbert_shaped_vocab(n, seed, n_cjk),
+                                   BERT_GRAMMAR, dict(BERT_TAGSET))
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+    return blob
+
+
+def mbert_docs(n_bytes: int, seed: int = 7, vocab_seed: int = 0,
+               n_cjk: int = MBERT_CJK) -> list[bytes]:
+    """Multilingual documents for the mbert-shaped model, UTF-8, until
+    ``n_bytes``: each of 3-19 parts, a run of 1-11 of the model's own
+    ideographs (half the parts; each ideograph is a word under
+    BERT_GRAMMAR), a word of its word list, a Cyrillic word ended by
+    '.' and a Greek letter, or an ideograph outside its alphabet ([UNK])
+    and an ideographic comma."""
+    rng = np.random.default_rng(seed)
+    cjk = np.array([c for c in mbert_alphabet(vocab_seed, n_cjk)
+                    if 0x4E00 <= c < 0xA000])
+    outside = np.setdiff1d(np.arange(0x4E00, 0xA000), cjk)
+    words = [w.decode() for w in word_list(vocab_seed, 3000)]
+    docs, total = [], 0
+    while total < n_bytes:
+        parts = []
+        for _ in range(int(rng.integers(3, 20))):
+            k = int(rng.integers(0, 6))
+            if k <= 2:
+                parts.append("".join(chr(int(c)) for c in rng.choice(
+                    cjk, int(rng.integers(1, 12)))))
+            elif k == 3:
+                parts.append(words[int(rng.integers(len(words)))])
+            elif k == 4:
+                parts.append("".join(chr(int(c)) for c in rng.integers(
+                    0x410, 0x450, int(rng.integers(1, 8)))) + "."
+                             + chr(int(rng.integers(0x3B1, 0x3CA))))
+            else:
+                parts.append(chr(int(rng.choice(outside))) + "\u3001")
+        docs.append(" ".join(parts).encode("utf-8"))
+        total += len(docs[-1])
+    return docs
 
 
 def wp_edge_rows(l_iw: int, r_iw: int, map_raw, width: int = 128,

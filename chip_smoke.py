@@ -53,33 +53,52 @@ Phases, each of which must pass (any failure exits non-zero):
               uncached 4 MiB batch, each kernel launched once over both
               classes as dispatch launches it, and K3 on the dense
               sub-grammar's CSR; tolerance 0;
- 13. model-l  the shipped pattern-lexer models of the package, wbd
+ 13. main-wm  a seeded multilingual-bert-shaped WordPiece model (119,547
+              lines, about 1,500 CJK ideographs in an alphabet of about
+              2,150 characters; testing.mbert_shaped_model_bytes, compiled
+              once and cached under build/) as a user drives it:
+              WordPieceHybrid(model, device="cuda") declines its dense
+              table under the default cap (reachable states x n_iws
+              logged), then encode_corpus_flat(docs, unk_id=100) over the
+              corpus, first, second and profiled call: K8 must launch, at
+              most once a batch, K7 and K3 never; every document must
+              equal the native runtime's TextToIds and 500 sampled ones
+              the scalar LexerOracleApi; the corpus is English, so one
+              call over 4 MiB of the model's own multilingual traffic
+              (testing.mbert_docs) is held the same way;
+ 14. kernels-wm K8 against its plain version on the packed rows of both
+              classes of one uncached 4 MiB batch of main-wm, in one
+              launch, and likewise on one 4 MiB batch of the model's own
+              multilingual traffic (its ideographs and scripts,
+              testing.mbert_docs; logged, not in the kernels line);
+              tolerance 0;
+ 15. model-l  the shipped pattern-lexer models of the package, wbd
               (TextToWords) and sbd (TextToSentences): their automata's
               size, functions, and the state that owns slot 0 of the comb
               table with its base;
- 14. main-l   the pattern lexer as a user drives it: WordsTpu(wbd,
+ 16. main-l   the pattern lexer as a user drives it: WordsTpu(wbd,
               device="cuda").text_to_words_batch over the same corpus, a
               first call, a second with the span memo emptied, one answered
               from the memo, one profiled: K9 must launch; every document
               must equal the native runtime's TextToWords and 500 sampled
               ones the scalar LexerOracleApi;
- 15. main-s   the same for WordsTpu(sbd).text_to_sentences_batch against
+ 17. main-s   the same for WordsTpu(sbd).text_to_sentences_batch against
               the native TextToSentences; document 107 of tests/corpus.py
               (U+1F642 after '."'), run apart from the corpus, must be the
               native runtime's single sentence;
- 16. main-lw  WordPieceTpu(bert-shaped model, device="cuda")
+ 18. main-lw  WordPieceTpu(bert-shaped model, device="cuda")
               .text_to_ids_batch(docs, unk_id=100) over the corpus's first
               4 MiB: K9 must launch and the ids equal main-w's;
- 17. kernels-l K9 against its plain version on the rows of every launch
+ 19. kernels-l K9 against its plain version on the rows of every launch
               (every level and bucket width) of one uncached 4 MiB batch on
               each pattern-lexer path, and on rows of 4,098 and 16,386
               lanes (testing.lexer_wide_rows, through lexer_pass_packed
               directly) with a row that matches nowhere; tolerance 0;
- 18. model-h  a seeded syllab-shaped W2H hyphenation model (78,000 patterns,
+ 20. model-h  a seeded syllab-shaped W2H hyphenation model (78,000 patterns,
               about syllab.bin's 1.18 MB) built by the port's copy of the
               pattern compiler; its automaton's size and the state that owns
               slot 0 of the comb table with its base;
- 19. main-h   W2H hyphenation as a user drives it: HyphTpu(model,
+ 21. main-h   W2H hyphenation as a user drives it: HyphTpu(model,
               device="cuda").process_batch(words) over every token of the
               corpus (stripped of .,!?"' at its ends) and the edge words, a
               first call, a second, one profiled: K10 must launch once a
@@ -87,16 +106,16 @@ Phases, each of which must pass (any failure exits non-zero):
               distinct word of at most 300 code points must equal the native
               runtime's WordHyphenationWithModel, 500 sampled words the
               scalar HyphEngine, and longer words give None;
- 20. kernels-h K10 against its plain version on one batch of the
+ 22. kernels-h K10 against its plain version on one batch of the
               distinct words: each segment (a bucket's rows) alone, then
               the batch in one packed launch as main-h makes it; rows, ms
               and tile shape by bucket; tolerance 0;
- 21. model-b  two seeded SentencePiece-BPE-shaped merges models (32,000
+ 23. model-b  two seeded SentencePiece-BPE-shaped merges models (32,000
               entries, char mode, the xlnet-shaped alphabet with 3,000 and
               with 420 CJK characters, pair pieces ▁w1▁w2, so not
               chunk-safe): their alphabet, automaton, comb slots and table
               mode (comb or trie), rank mode, chunk-safety;
- 22. main-b   the classic doc-row path as a user drives it:
+ 24. main-b   the classic doc-row path as a user drives it:
               SpTokenizer(comb model, max_doc_symbols=1024, device="cuda")
               then encode_corpus_flat over the corpus, a first call, a
               second and a profiled one: K1 and K2 must launch; every
@@ -105,17 +124,17 @@ Phases, each of which must pass (any failure exits non-zero):
               reach the oracle; then one call with no chunk rows (every
               document past the window to the native runtime, as JAX
               does for such a model), timed, with the same ids;
- 23. main-br  the trie model the same way over the corpus's first 4 MiB:
+ 25. main-br  the trie model the same way over the corpus's first 4 MiB:
               K3, K1 and K2 must launch; every document equals the native
               runtime;
- 24. main-bc  the gpt2-shaped model's encode_batch(docs, dedup=False) over
+ 26. main-bc  the gpt2-shaped model's encode_batch(docs, dedup=False) over
               the first 4 MiB at max_doc_symbols=128, so documents past 128
               symbols are split into chunk rows: its ids must equal main's;
- 25. kernels-b K1 (comb + rank, trie + rank) and K2 (rank) against their
+ 27. kernels-b K1 (comb + rank, trie + rank) and K2 (rank) against their
               plain versions on every launch (every row width) of the
               classic rows of one uncached 4 MiB batch, and on the rows of
               the rank-fault model; tolerance 0; K2's claim depth a launch;
- 26. main-ww  a window past the compact lanes and K2's rows: the
+ 28. main-ww  a window past the compact lanes and K2's rows: the
               gpt2-shaped model's SpTokenizer(max_doc_symbols=2048)
               .encode_corpus_flat over the corpus (first, second, profiled
               call) on the NumPy unit path: K1, K2 and K11 must launch, the
@@ -124,7 +143,7 @@ Phases, each of which must pass (any failure exits non-zero):
               over the first 4 MiB: every document equals the native
               runtime; no K2 launch of the phase passes N <= 1024 or a_max
               <= 4096;
- 27. kernels-p K11 pack_out (and K1 and K2, or K5 and K6, whose output it
+ 29. kernels-p K11 pack_out (and K1 and K2, or K5 and K6, whose output it
               packs) against their plain versions on every launch of the
               NumPy unit path of one uncached 4 MiB batch at main-ww's window,
               for both models; K11 (into a given output, as the path calls
@@ -133,7 +152,7 @@ Phases, each of which must pass (any failure exits non-zero):
               DP step; K11's host time a call by part (checks, allocation,
               device, stream, pointers, ctypes call) over 1,000 calls at the
               first launch's shape;
- 28. main-dp  the data-parallel runners in an NCCL group of one process (one
+ 30. main-dp  the data-parallel runners in an NCCL group of one process (one
               card; more ranks are not shown here): ShardedSpRunner.run and
               run_units of the gpt2- and xlnet-shaped models at 128 symbols
               and ShardedWpRunner.run_rows of the bert-shaped hybrid's packed
@@ -141,11 +160,11 @@ Phases, each of which must pass (any failure exits non-zero):
               plain shard_stats on the host over the same rows, run_units'
               ids main's and main-u's, run_rows' rows WordPieceHybrid
               .dispatch's; K12 must launch;
- 29. kernels-dp K12 shard_stats against its plain version on main-dp's
+ 31. kernels-dp K12 shard_stats against its plain version on main-dp's
               slabs (the WordPiece ones strided), beside its launch floor
               (the source with the kernel's body emptied, at the same
               grid); tolerance 0;
- 30. main-api the product API as a user calls it: api.load_model(path) of
+ 32. main-api the product API as a user calls it: api.load_model(path) of
               the gpt2-shaped model with the default device, then
               text_to_ids_batch over the corpus, a first and a second call:
               K1, K2 and K4 must launch and every document equal main's;
@@ -231,7 +250,8 @@ SOURCES = {
     "wp_subword_dense": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
                          {"wordpiece": "blingfire_tpu/ops/lexer.py:246"}),
     "wp_subword_comb": ("blingfire_tpu_torch/kernels/csrc/wp_subword.cu",
-                        {"wordpiece": "blingfire_tpu/ops/lexer.py:353"}),
+                        {p: "blingfire_tpu/ops/lexer.py:353"
+                         for p in ("wordpiece", "wordpiece_comb")}),
     "lexer_pass": ("blingfire_tpu_torch/kernels/csrc/lexer_pass.cu",
                    {p: "blingfire_tpu/ops/lexer.py:93"
                     for p in ("words", "sentences", "wp_lexer")}),
@@ -245,7 +265,7 @@ SOURCES = {
 }
 WP_UNK = 100  # bert's [UNK]
 # the kernels the WordPiece main path launches (K8 runs only when the dense
-# table is declined: phase main-wc)
+# table is declined: phases main-wc and main-wm)
 WP_MAIN = ("scatter_trie", "wp_subword_dense")
 # the kernels' numbers, K1..K12
 K_IDS = {"bpe_walk": "K1", "bpe_resolve": "K2", "scatter_trie": "K3",
@@ -634,28 +654,15 @@ def unigram_kernels(tok, docs, native, uni_ops, dedup, dev):
     return stats
 
 
-def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
-    """Phase 12: K7 and K8 against their plain versions on the packed rows
-    of both length classes of one uncached 4 MiB batch, each launched once
-    over both classes as WordPieceHybrid.dispatch launches it (the plain
-    version runs once a class), and K3 on the dense sub-grammar."""
+def wp_pass_vs_plain(s, label: str, h, name: str, px, pinit, class_rows,
+                     lexer_ops, dev) -> tuple:
+    """Hybrid ``h``'s kernel ``name`` in one launch over a packed batch of
+    both length classes, as WordPieceHybrid.dispatch launches it, against
+    the plain version run once a class: its error, events ms, plain ms,
+    bytes and operations into ``s``.  Returns the launch's arguments."""
     from blingfire_tpu_torch import kernels
 
-    nh, u_syms, u_soff, u_fn = hyb._analyze(corpus_prefix(docs, CMP_BYTES))
-    hyb._rt.BtlWpFree(nh)
-    n_units = len(u_soff) - 1
-    runs = []
-    for h, name in ((hyb, "wp_subword_dense"), (hyb_c, "wp_subword_comb")):
-        px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
-        runs.append((h, name, px, pinit, class_rows))
-    check(len(runs[0][2]) >= 1000, f"only {len(runs[0][2])} packed rows")
-    check(np.array_equal(runs[0][2], runs[1][2]), "packed rows differ by mode")
-    log(f"[kernels-w] {n_units} unique units in {len(runs[0][2])} packed "
-        f"rows: classes (rows, lw) "
-        f"{[(hi - lo, lw) for lo, hi, lw in runs[0][4]]}")
-    stats = new_stats(("wp_subword_dense", "wp_subword_comb"), "wordpiece")
-
-    def plain(h, x, init, class_rows, r=None):
+    def plain(x, init, class_rows, r=None):
         out = []
         for lo, hi, lw in class_rows:
             xc, ic = x[lo:hi], init[lo:hi]
@@ -669,34 +676,55 @@ def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
                     n_f, h._n_iws, reads=r))
         return torch.cat(out)
 
+    x = torch.from_numpy(px).to(dev)
+    init = torch.from_numpy(pinit).to(dev)
+    B, M = x.shape
+    out = torch.empty((B, M + 2), dtype=torch.int32, device=dev)
+    n = kernels.launches[name]
+    h._passes(x, init, class_rows, out)
+    check(kernels.launches[name] == n + 1,
+          f"{name}: not one launch over both length classes")
+    r = reads()
+    p = plain(x, init, class_rows, r)
+    torch.cuda.synchronize()
+    s["err"] = max_abs_err([(out, p)])
+    s["ms"] = cuda_ms(lambda: h._passes(x, init, class_rows, out), 50)
+    s["plain_ms"] = cuda_ms(lambda: plain(x, init, class_rows), 2, warm=1)
+    # rows in (x, init) and out, and each table entry read once
+    s["bytes"] = B * M * 8 + B * (M + 2) * 4 + r.table_bytes()
+    s["ops"] = r.steps + B * M
+    log(f"[{label}] {name}: one launch over {B} rows of both classes "
+        f"{[(hi - lo, lw) for lo, hi, lw in class_rows]}: equal to the "
+        f"plain version a class (max_abs_err {s['err']}); {s['ms']:.5f} ms, "
+        f"plain {s['plain_ms']:.4f} ms; matches {int(out[:, M].sum())}; "
+        f"live lane-steps {r.steps}, table bytes read {r.table_bytes()}, "
+        f"actions reached {r.entries('act_tag')}")
+    return x, init, class_rows, out
+
+
+def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
+    """Phase 12: K7 and K8 against their plain versions on the packed rows
+    of both length classes of one uncached 4 MiB batch, each launched once
+    over both classes as WordPieceHybrid.dispatch launches it (the plain
+    version runs once a class), and K3 on the dense sub-grammar."""
+    nh, u_syms, u_soff, u_fn = hyb._analyze(corpus_prefix(docs, CMP_BYTES))
+    hyb._rt.BtlWpFree(nh)
+    n_units = len(u_soff) - 1
+    runs = []
+    for h, name in ((hyb, "wp_subword_dense"), (hyb_c, "wp_subword_comb")):
+        px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+        runs.append((h, name, px, pinit, class_rows))
+    check(len(runs[0][2]) >= 1000, f"only {len(runs[0][2])} packed rows")
+    check(np.array_equal(runs[0][2], runs[1][2]), "packed rows differ by mode")
+    log(f"[kernels-w] {n_units} unique units in {len(runs[0][2])} packed "
+        f"rows: classes (rows, lw) "
+        f"{[(hi - lo, lw) for lo, hi, lw in runs[0][4]]}")
+    stats = new_stats(("wp_subword_dense", "wp_subword_comb"), "wordpiece")
     dev_rows = {}
     for h, name, px, pinit, class_rows in runs:
-        s = stats[(name, "wordpiece")]
-        x = torch.from_numpy(px).to(dev)
-        init = torch.from_numpy(pinit).to(dev)
-        B, M = x.shape
-        out = torch.empty((B, M + 2), dtype=torch.int32, device=dev)
-        dev_rows[name] = (h, (x, init, class_rows, out))
-        n = kernels.launches[name]
-        h._passes(x, init, class_rows, out)
-        check(kernels.launches[name] == n + 1,
-              f"{name}: not one launch over both length classes")
-        r = reads()
-        p = plain(h, x, init, class_rows, r)
-        torch.cuda.synchronize()
-        s["err"] = max_abs_err([(out, p)])
-        s["ms"] = cuda_ms(lambda: h._passes(x, init, class_rows, out), 50)
-        s["plain_ms"] = cuda_ms(lambda: plain(h, x, init, class_rows), 2,
-                                warm=1)
-        # rows in (x, init) and out, and each table entry read once
-        s["bytes"] = B * M * 8 + B * (M + 2) * 4 + r.table_bytes()
-        s["ops"] = r.steps + B * M
-        log(f"[kernels-w] {name}: one launch over {B} rows of both classes "
-            f"{[(hi - lo, lw) for lo, hi, lw in class_rows]}: equal to the "
-            f"plain version a class; {s['ms']:.5f} ms; matches "
-            f"{int(out[:, M].sum())}; live lane-steps {r.steps}, table "
-            f"bytes read {r.table_bytes()}, actions reached "
-            f"{r.entries('act_tag')}")
+        dev_rows[name] = (h, wp_pass_vs_plain(
+            stats[(name, "wordpiece")], "kernels-w", h, name, px, pinit,
+            class_rows, lexer_ops, dev))
 
     def once():
         for h, args in dev_rows.values():
@@ -722,6 +750,136 @@ def wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev):
         f"{s['err']}")
     stats.update(k3)
     return stats
+
+
+def mbert_kernels(hyb_m, docs, ml_docs, lexer_ops, dev):
+    """Phase 14: K8 against its plain version on the packed rows of both
+    length classes of one uncached 4 MiB batch of main-wm (the
+    multilingual-bert-shaped model, its dense table declined by the cap),
+    in one launch as WordPieceHybrid.dispatch makes it; then the same on
+    one batch of the model's own multilingual traffic (``ml_docs``), which
+    is logged and kept out of the kernels line."""
+    out = {}
+    # the multilingual batch's units repeat more: 672 rows of 4 MiB
+    for label, batch, n_min in (
+            ("main-wm", corpus_prefix(docs, CMP_BYTES), 1000),
+            ("multilingual", ml_docs, 500)):
+        nh, u_syms, u_soff, u_fn = hyb_m._analyze(batch)
+        hyb_m._rt.BtlWpFree(nh)
+        px, pinit, class_rows, _r, _o = hyb_m._pack(u_syms, u_soff, u_fn)
+        check(len(px) >= n_min, f"only {len(px)} packed rows")
+        log(f"[kernels-wm] {label}: {len(batch)} docs, "
+            f"{sum(map(len, batch))} B, {len(u_soff) - 1} unique units in "
+            f"{len(px)} packed rows: classes (rows, lw) "
+            f"{[(hi - lo, lw) for lo, hi, lw in class_rows]}")
+        stats = new_stats(("wp_subword_comb",), "wordpiece_comb")
+        s = stats[("wp_subword_comb", "wordpiece_comb")]
+        args = wp_pass_vs_plain(s, "kernels-wm", hyb_m, "wp_subword_comb",
+                                px, pinit, class_rows, lexer_ops, dev)
+        profiled_device_ms(lambda: hyb_m._passes(*args), stats)
+        bound, bound_by = bound_of(s)
+        log(f"[kernels-wm] {label} wp_subword_comb: device {s['device_ms']} "
+            f"ms (records {s['records']}), bound {bound:.5f} ms "
+            f"({bound_by}), max_abs_err {s['err']}")
+        check(s["err"] == 0.0, f"K8 disagrees with its plain version on "
+              f"the {label} batch")
+        out[label] = stats
+    return out["main-wm"]
+
+
+def run_mbert(docs, n_edge: int, dev) -> tuple[dict, dict]:
+    """Phases 13 and 14: the multilingual-bert-shaped model's main run
+    (main-wm) and K8 on one uncached 4 MiB batch of it (kernels-wm).
+    Returns the main run (its launches and counters) and K8's stats."""
+    from blingfire_tpu_torch import kernels, testing
+    from blingfire_tpu_torch.models.loader import load_bytes
+    from blingfire_tpu_torch.ops import lexer as lexer_ops
+    from blingfire_tpu_torch.runtime import metrics
+    from blingfire_tpu_torch.runtime.lexer import LexerOracleApi
+    from blingfire_tpu_torch.runtime.wp_hybrid import WordPieceHybrid
+
+    t0 = time.perf_counter()
+    blob_m = testing.mbert_shaped_model_bytes()
+    t_compile = time.perf_counter() - t0
+    model_m = load_bytes(blob_m)
+    log(f"[main-wm] mbert-shaped WordPiece: {testing.MBERT_VOCAB} lines, "
+        f"{len(testing.mbert_alphabet())} characters, {len(blob_m)} B image, "
+        f"{model_m.wbd.aut.n_states} states; compiled (or read from build/) "
+        f"in {t_compile:.1f} s, loaded in "
+        f"{time.perf_counter() - t0 - t_compile:.1f} s")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hyb_m = WordPieceHybrid(model_m, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    check(hyb_m._dense is None and hyb_m.available(),
+          "the mbert-shaped model kept its dense table or is not pack-safe")
+    n_reach = lexer_ops.dense_sub_edges(hyb_m.comb, model_m.wbd.aut.moore_ow,
+                                        hyb_m._inis)[-1]
+    dense = n_reach * hyb_m._n_iws
+    check(dense > lexer_ops.DENSE_MAX_ENTRIES, "the dense table fits its cap")
+    log(f"[main-wm] WordPieceHybrid init {t_init:.3f} s: comb "
+        f"{hyb_m.comb.n_states} states, {hyb_m.comb.n_slots} slots, n_iws "
+        f"{hyb_m._n_iws}; reachable states x n_iws = {n_reach} x "
+        f"{hyb_m._n_iws} = {dense} > DENSE_MAX_ENTRIES "
+        f"{lexer_ops.DENSE_MAX_ENTRIES} ({dense / lexer_ops.DENSE_MAX_ENTRIES:.3f}"
+        f"x): dense table declined; peak device memory after init "
+        f"{torch.cuda.max_memory_allocated()} B")
+    main_wm = run_main(hyb_m, docs, "main-wm", kernels, metrics,
+                       unk_id=WP_UNK)
+    check(main_wm["launches"].get("wp_subword_comb", 0) > 0,
+          "kernel wp_subword_comb never launched on main-wm")
+    check(not main_wm["launches"].get("wp_subword_dense")
+          and not main_wm["launches"].get("scatter_trie"),
+          "main-wm launched the dense pass")
+    check(main_wm["launches"].get("wp_subword_comb", 0)
+          <= main_wm["counters"].batches,
+          "K8 launched more than once in a batch")
+    ids, bounds = main_wm["ids"], main_wm["bounds"]
+    check(ids.min() >= 0 and ids.max() < testing.MBERT_VOCAB,
+          f"ids out of range: {ids.min()}..{ids.max()}")
+    t0 = time.perf_counter()
+    bad = [i for i, d in enumerate(docs)
+           if native_ids(hyb_m._rt, hyb_m._nh, d, WP_UNK)
+           != ids[bounds[i] : bounds[i + 1]].tolist()]
+    check(not bad, f"main-wm: {len(bad)} docs differ from the native "
+          f"runtime, first {bad[:5]}")
+    log(f"[main-wm] all {len(docs)} docs equal the native runtime's "
+        f"TextToIds ({time.perf_counter() - t0:.1f} s)")
+    oracle_m = LexerOracleApi(model_m)
+    check_oracle(lambda d: oracle_m.text_to_ids(d, unk_id=WP_UNK), docs, ids,
+                 bounds, n_edge, "main-wm")
+    log(f"[main-wm] chained slot records (built at the first K8 launch) "
+        f"{hyb_m.tables.chain.numel() * 4} B")
+    del ids, bounds, main_wm["ids"], main_wm["bounds"]
+    # the model's own traffic: the corpus is English, so its ideographs
+    # and scripts come from testing.mbert_docs
+    ml_docs = testing.mbert_docs(CMP_BYTES)
+    n_ml = sum(map(len, ml_docs))
+    n0 = kernels.launches["wp_subword_comb"]
+    t0 = time.perf_counter()
+    ids, bounds = hyb_m.encode_corpus_flat(ml_docs, unk_id=WP_UNK)
+    torch.cuda.synchronize()
+    t_ml = time.perf_counter() - t0
+    check(kernels.launches["wp_subword_comb"] > n0,
+          "K8 never launched on the multilingual documents")
+    bad = [i for i, d in enumerate(ml_docs)
+           if native_ids(hyb_m._rt, hyb_m._nh, d, WP_UNK)
+           != ids[bounds[i] : bounds[i + 1]].tolist()]
+    check(not bad, f"main-wm multilingual: {len(bad)} docs differ from the "
+          f"native runtime, first {bad[:5]}")
+    check_oracle(lambda d: oracle_m.text_to_ids(d, unk_id=WP_UNK), ml_docs,
+                 ids, bounds, 0, "main-wm multilingual")
+    log(f"[main-wm] multilingual: {len(ml_docs)} docs, {n_ml} B in "
+        f"{t_ml:.3f} s ({n_ml / t_ml:.0f} B/s), {len(ids)} tokens, "
+        f"{int((ids == WP_UNK).sum())} [UNK], "
+        f"{kernels.launches['wp_subword_comb'] - n0} K8 launches; every doc "
+        f"equals the native runtime's TextToIds, sampled ones the oracle")
+    del ids, bounds, oracle_m
+
+    # kernels-wm
+    return main_wm, mbert_kernels(hyb_m, docs, ml_docs, lexer_ops, dev)
 
 
 def run_lexer_main(prod, call, docs, label: str, unit: str, count,
@@ -808,7 +966,7 @@ def lexer_wide_vs_plain(s, path: str, lex, sub, lexer_ops, dev) -> None:
 
 
 def lexer_kernels(paths, docs, lexer_ops, dev) -> dict:
-    """Phase 17: K9 against its plain version on the rows of every launch
+    """Phase 19: K9 against its plain version on the rows of every launch
     (every level and bucket width) that one uncached CMP_BYTES batch makes
     on each pattern-lexer path, then on wide rows
     (:func:`lexer_wide_vs_plain`; not in the batch's sums).  ``paths``:
@@ -953,7 +1111,7 @@ def check_hyph(hy, words, out, native, blob: bytes, render) -> None:
 
 
 def hyph_kernels(hy, words, hyph_ops, dev) -> dict:
-    """Phase 20: K10 against its plain version on one batch of the distinct
+    """Phase 22: K10 against its plain version on one batch of the distinct
     words: each segment (a bucket's rows) alone, then the batch in one
     packed launch, as main-h launches it; the packed launch's times are
     K10's."""
@@ -1003,14 +1161,14 @@ def hyph_kernels(hy, words, hyph_ops, dev) -> dict:
     return stats
 
 
-def native_ids(rt, h, d: bytes) -> list[int]:
-    """The native runtime's TextToIds of one document (unknown id 0)."""
+def native_ids(rt, h, d: bytes, unk_id: int = 0) -> list[int]:
+    """The native runtime's TextToIds of one document."""
     import ctypes
 
     cap = len(d) + 16
     arr = np.empty(cap, np.int32)
     n = rt.TextToIds(ctypes.c_void_p(h), d, len(d),
-                     arr.ctypes.data_as(ctypes.c_void_p), cap, 0)
+                     arr.ctypes.data_as(ctypes.c_void_p), cap, unk_id)
     check(0 <= n <= cap, f"the native TextToIds gave {n} for a document")
     return arr[:n].tolist()
 
@@ -1046,7 +1204,7 @@ def classic_launches(tok, sub, launch_rows, dev) -> list:
 
 
 def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
-    """Phase 25: K1 and K2 against their plain versions on the rows of every
+    """Phase 27: K1 and K2 against their plain versions on the rows of every
     launch (every row width) of the classic rows of one uncached CMP_BYTES
     batch, in each table mode of ``toks`` (mode -> SpTokenizer; the stats of
     the main path's mode, comb, go to the JSON line, the others to the log),
@@ -1110,7 +1268,7 @@ def classic_kernels(toks, fault, docs, bpe_ops, launch_rows, dev) -> dict:
 
 
 def run_dp(mesh, toks, want, hyb, sub, testing, dedup, native, dev):
-    """Phase 28 in a process group: ShardedSpRunner.run and run_units of
+    """Phase 30 in a process group: ShardedSpRunner.run and run_units of
     each tokenizer of ``toks`` (kind -> SpTokenizer) and ShardedWpRunner
     .run_rows of ``hyb``'s packed rows, over the documents ``sub``.  Totals
     and checksums must equal the plain shard_stats on the host over the
@@ -1190,7 +1348,7 @@ def run_dp(mesh, toks, want, hyb, sub, testing, dedup, native, dev):
 
 
 def units_np_kernels(toks, docs, bpe_ops, uni_ops, dedup, dev) -> dict:
-    """Phase 27: K11 against its plain version (and the segment kernels
+    """Phase 29: K11 against its plain version (and the segment kernels
     whose output it packs: K1 and K2, or K5 and K6) on every launch of the
     NumPy unit path of one uncached CMP_BYTES batch, for each tokenizer of
     ``toks`` (path -> SpTokenizer at WIDE_DOC); K11 is timed into an output
@@ -1341,7 +1499,7 @@ def pack_host_ns(name: str, dedup, kernels, ids, sts, cnt, fb,
 
 
 def run_api(blobs, docs, sub, want, native, kernels, metrics) -> None:
-    """Phase 30: the product API, its drop-in layer and the top-level
+    """Phase 32: the product API, its drop-in layer and the top-level
     entry points as a user calls them.  ``blobs``: family (gpt2, xlnet, bert) ->
     model image; ``want``: family -> (ids, bounds) of main, main-u and
     main-w over ``docs`` (the first ``len(sub)`` for xlnet and bert)."""
@@ -1511,7 +1669,7 @@ def run_api(blobs, docs, sub, want, native, kernels, metrics) -> None:
 
 
 def dp_kernels(slabs, mesh) -> dict:
-    """Phase 29: K12 against its plain version on each (ids, counts) slab
+    """Phase 31: K12 against its plain version on each (ids, counts) slab
     of main-dp (the WordPiece slabs strided), their times, byte bound and
     launch floor (the source with the kernel's body emptied, launched by
     the same wrapper at the same grid); no one PyTorch call computes it."""
@@ -1823,7 +1981,11 @@ def main() -> int:
     stats.update(wordpiece_kernels(hyb, hyb_c, docs, lexer_ops, bpe_ops, dev))
     del hyb_c  # hyb runs again in main-dp
 
-    # --------------------------------------------------------- 13. model-l
+    # ------------------------------------- 13. main-wm, 14. kernels-wm
+    main_wm, k8_wm = run_mbert(docs, n_edge, dev)
+    stats.update(k8_wm)
+
+    # --------------------------------------------------------- 15. model-l
     lex_models = {}
     for name in ("wbd", "sbd"):
         t0 = time.perf_counter()
@@ -1840,7 +2002,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         lex_models[name] = m
 
-    # ------------------------------------------- 14. main-l, 15. main-s
+    # ------------------------------------------- 16. main-l, 17. main-s
     lex_runs = {}
     lex_paths = {}
     for path, name, meth, unit, sep in (
@@ -1886,7 +2048,7 @@ def main() -> int:
         lex_paths[path] = (prod.lex, True)
         del out, run
 
-    # --------------------------------------------------------- 16. main-lw
+    # --------------------------------------------------------- 18. main-lw
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1915,10 +2077,10 @@ def main() -> int:
     lex_paths["wp_lexer"] = (wpt.lex, False)
     del ids_lw, sub_ids
 
-    # ------------------------------------------------------- 17. kernels-l
+    # ------------------------------------------------------- 19. kernels-l
     stats.update(lexer_kernels(lex_paths, docs, lexer_ops, dev))
 
-    # --------------------------------------------------------- 18. model-h
+    # --------------------------------------------------------- 20. model-h
     t0 = time.perf_counter()
     blob_h = testing.syllab_shaped_model_bytes()
     model_h = load_bytes(blob_h)
@@ -1936,7 +2098,7 @@ def main() -> int:
     log(f"[model-h] {len(words)} words from the corpus and the edge words, "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # ---------------------------------------------------------- 19. main-h
+    # ---------------------------------------------------------- 21. main-h
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1947,11 +2109,11 @@ def main() -> int:
     main_h = run_hyph_main(hy, words, sum(map(len, docs)), kernels, metrics)
     check_hyph(hy, words, main_h.pop("out"), native, blob_h, render)
 
-    # -------------------------------------------------------- 20. kernels-h
+    # -------------------------------------------------------- 22. kernels-h
     stats.update(hyph_kernels(hy, words, hyph_ops, dev))
     del words, hy
 
-    # --------------------------------------------------------- 21. model-b
+    # --------------------------------------------------------- 23. model-b
     models_b = {}
     for mode, n_cjk in BPE_MODES.items():
         t0 = time.perf_counter()
@@ -1974,7 +2136,7 @@ def main() -> int:
               and (t.trie_next is None) == (mode == "comb"),
               f"the {mode} model is not in its table and rank modes")
 
-    # ---------------------------------------------------------- 22. main-b
+    # ---------------------------------------------------------- 24. main-b
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2017,7 +2179,7 @@ def main() -> int:
         f"stage seconds {dict(c_n.stage_seconds)}; the same ids")
     del ids, bounds, ids_n, bounds_n
 
-    # --------------------------------------------------------- 23. main-br
+    # --------------------------------------------------------- 25. main-br
     kernels.reset_launches()
     t0 = time.perf_counter()
     tok_br = SpTokenizer(models_b["trie"], max_doc_symbols=CLASSIC_DOC,
@@ -2041,7 +2203,7 @@ def main() -> int:
     check_native(tok_br, native, sub, ids, bounds, "main-br")
     del ids, bounds
 
-    # --------------------------------------------------------- 24. main-bc
+    # --------------------------------------------------------- 26. main-bc
     kernels.reset_launches()
     tok_bc = SpTokenizer(model, max_doc_symbols=128, device="cuda")
     g = metrics.global_counters()
@@ -2060,14 +2222,14 @@ def main() -> int:
     log(f"[main-bc] the ids of all {len(sub)} docs equal main's")
     del got, main_sub_ids, tok_bc
 
-    # ------------------------------------------------------- 25. kernels-b
+    # ------------------------------------------------------- 27. kernels-b
     fault = SpTokenizer(load_bytes(testing.rank_fault_model_bytes()),
                         max_doc_symbols=16, device="cuda")
     stats.update(classic_kernels({"comb": tok_b, "trie": tok_br}, fault, docs,
                                  bpe_ops, dedup.launch_rows, dev))
     del tok_b, tok_br
 
-    # --------------------------------------------------------- 26. main-ww
+    # --------------------------------------------------------- 28. main-ww
     seen = []  # (width, a_max) of every K2 launch of main-ww
 
     def spy(tables, m_pack, *args):
@@ -2139,13 +2301,13 @@ def main() -> int:
         f"{sorted(arcs)}: all inside N <= {bpe_ops.RESOLVE_MAX_N}, a_max <= "
         f"{bpe_ops.RESOLVE_MAX_ARCS}")
 
-    # ------------------------------------------------------- 27. kernels-p
+    # ------------------------------------------------------- 29. kernels-p
     stats.update(units_np_kernels(
         {"bpe_units_np": tok_ww, "unigram_units_np": tok_wu}, docs, bpe_ops,
         uni_ops, dedup, dev))
     del tok_ww, tok_wu
 
-    # --------------------------------------------------------- 28. main-dp
+    # --------------------------------------------------------- 30. main-dp
     import socket
 
     import torch.distributed as dist
@@ -2178,18 +2340,19 @@ def main() -> int:
     log(f"[main-dp] launches {main_dp['launches']}")
     del toks_dp, want, hyb
 
-    # ------------------------------------------------------ 29. kernels-dp
+    # ------------------------------------------------------ 31. kernels-dp
     stats.update(dp_kernels(slabs, mesh))
     del slabs
 
-    # --------------------------------------------------------- 30. main-api
+    # --------------------------------------------------------- 32. main-api
     run_api({"gpt2": blob, "xlnet": blob_u, "bert": blob_w}, docs, sub,
             {k: (run["ids"], run["bounds"]) for k, run in (
                 ("gpt2", main), ("xlnet", main_u), ("bert", main_w))},
             native, kernels, metrics)
 
     path_runs = (("bpe", main), ("unigram", main_u), ("wordpiece", main_w),
-                 ("wordpiece", main_wc), ("words", lex_runs["words"]),
+                 ("wordpiece", main_wc), ("wordpiece_comb", main_wm),
+                 ("words", lex_runs["words"]),
                  ("sentences", lex_runs["sentences"]),
                  ("wp_lexer", main_lw), ("hyph", main_h),
                  ("bpe_classic", main_b), ("bpe_units_np", main_ww),

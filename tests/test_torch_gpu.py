@@ -5,7 +5,10 @@ region and table mode, K6 also on testing.unigram_lane_edge_rows (every
 lane-group shape, L past a warp) and on random arcs at the widths where
 its launcher widens a group, K4 pack_out_compact at widths 1 to 1,024
 (aligned or not), the WordPiece pass (K7 dense, K8 comb, K3 on the
-dense sub-grammar; K7 and K8 also in one launch over both length classes),
+dense sub-grammar; K7 and K8 also in one launch over both length classes;
+K8 on main-wc's batch, on the small multilingual-bert-shaped fixture, from
+states with a negative base, on the unknown symbol and with a short
+token-length gate),
 K5 at the depths around its 32-depth chunks (testing.unigram_deep_rows),
 and K9 lexer_pass of the pattern lexer on the shipped
 wbd and sbd models (also at 4,098 and 16,386 lanes), and K10 hyph_segment on syllab-shaped W2H models (also
@@ -1052,3 +1055,152 @@ def test_api_text_to_ids_batch_on_the_card(kind, want, tmp_path):
     cpu = api.load_model(str(p), device="cpu").text_to_ids_batch(docs,
                                                                  unk_id=unk)
     assert got == cpu and got[0] == one
+
+
+# K8 reads chained slot records (ops/lexer.py::comb_chain, tables.chain):
+# one 16-byte load a step.  Each case below launches it once and holds it to the plain
+# five-gather walk, _pass_comb_plain, on the card.
+
+
+def _k8_matches_plain(h, x, init, lw, tables=None, class_rows=None):
+    """K8 in one launch (both classes when class_rows is given) against the
+    plain comb pass a class."""
+    t = h.tables if tables is None else tables
+    xd, idv = torch.as_tensor(x).cuda(), torch.as_tensor(init).cuda()
+    class_rows = class_rows or [(0, len(xd), lw)]
+    (lo0, hi0, lw0), *rest = class_rows
+    n = kernels.launches["wp_subword_comb"]
+    got = lexer.wp_subword_pass(t, xd, idv, h._l_iw, h._r_iw, lw0,
+                                tail=(hi0, rest[0][2]) if rest else None)
+    assert kernels.launches["wp_subword_comb"] == n + 1
+    want = torch.cat([lexer._pass_comb_plain(t, xd[lo:hi], idv[lo:hi],
+                                             h._l_iw, h._r_iw, d)
+                      for lo, hi, d in class_rows])
+    assert torch.equal(got, want)
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_hybrid(kind: str) -> WordPieceHybrid:
+    """The comb pass's hybrid on the card: the bert-shaped model at full
+    size with the dense table declined by force (main-wc), or the small
+    multilingual-bert-shaped fixture likewise."""
+    blob = (testing.bert_shaped_model_bytes() if kind == "main-wc"
+            else testing.mbert_shaped_model_bytes(6000))
+    saved = lexer.DENSE_MAX_ENTRIES
+    lexer.DENSE_MAX_ENTRIES = -1
+    try:
+        return WordPieceHybrid(load_bytes(blob), device="cuda")
+    finally:
+        lexer.DENSE_MAX_ENTRIES = saved
+
+
+@pytest.mark.parametrize("kind", ["main-wc", "mbert"])
+def test_wp_comb_kernel_on_both_classes_in_one_launch(kind):
+    """main-wc's batch (the first 4 MiB of the 32 MiB corpus) and the mbert
+    fixture's rows of documents with its own ideographs."""
+    _need_cuda()
+    from blingfire_tpu_torch import measure
+
+    h = _k8_hybrid(kind)
+    if kind == "main-wc":
+        docs = measure.corpus_prefix(testing.zipf_corpus(
+            measure.CORPUS_BYTES), measure.CMP_BYTES)
+    else:
+        rng = np.random.default_rng(3)
+        cjk = [c for c in testing.mbert_alphabet() if 0x4E00 <= c < 0xA000]
+        docs = _wp_docs() + [" ".join("".join(map(chr, rng.choice(cjk, 5)))
+                                      for _ in range(40)).encode()
+                             for _ in range(50)]
+    nh, u_syms, u_soff, u_fn = h._analyze(docs)
+    h._rt.BtlWpFree(nh)
+    px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+    assert len(class_rows) == 2 and class_rows[1][1] > class_rows[1][0]
+    got = _k8_matches_plain(h, px, pinit, None, class_rows=class_rows)
+    assert int(got[:, 128].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["main-wc", "mbert"])
+def test_wp_comb_kernel_from_states_with_a_negative_base(kind):
+    """Lanes started at states whose base is negative, on symbols below
+    and above -base, and on the unknown symbol (n_iws), at both depths."""
+    _need_cuda()
+    h = _k8_hybrid(kind)
+    base = np.asarray(h.comb.base)
+    neg = np.flatnonzero(base < 0)
+    assert len(neg)
+    rng = np.random.default_rng(11)
+    B, M = 64, 128
+    starts = rng.choice(neg, (B, M))
+    x = rng.integers(0, h._n_iws + 1, (B, M)).astype(np.int32)
+    low = (-base[starts]).clip(1, None)
+    below = rng.random((B, M)) < 0.3
+    x = np.where(below, rng.integers(0, low), x).astype(np.int32)
+    x[:, ::7] = h._n_iws  # the unknown symbol
+    x[:, 5::11] = h._r_iw
+    x[:, 3::13] = -1
+    init = np.where(x >= 0, starts, -1).astype(np.int32)
+    for lw in (18, 42):
+        _k8_matches_plain(h, x, init, lw)
+
+
+def test_wp_comb_kernel_on_edge_rows_and_a_short_token_gate():
+    """The mbert fixture's edge rows (testing.wp_edge_rows), and its packed
+    rows with max_token_length cut to 3."""
+    _need_cuda()
+    h = _k8_hybrid("mbert")
+    x, fn = testing.wp_edge_rows(h._l_iw, h._r_iw, h._map_raw)
+    init = np.where(fn >= 0, h._fn2ini[np.clip(fn, 0, len(h._fn2ini) - 1)],
+                    -1).astype(np.int32)
+    for lw in (18, 42):
+        _k8_matches_plain(h, x, init, lw)
+    nh, u_syms, u_soff, u_fn = h._analyze(_wp_docs())
+    h._rt.BtlWpFree(nh)
+    px, pinit, class_rows, _r, _o = h._pack(u_syms, u_soff, u_fn)
+    short = dataclasses.replace(h.tables, max_token_length=3)
+    got = _k8_matches_plain(h, px, pinit, None, tables=short,
+                            class_rows=class_rows)
+    assert not torch.equal(got, _k8_matches_plain(h, px, pinit, None,
+                                                  class_rows=class_rows))
+
+
+def test_wp_comb_kernel_builds_its_records_at_the_first_launch():
+    """tables.chain: built on the card by the first comb launch, kept for
+    the next, and equal to the records built on the CPU."""
+    _need_cuda()
+    blob = testing.mbert_shaped_model_bytes(6000)
+    saved = lexer.DENSE_MAX_ENTRIES
+    lexer.DENSE_MAX_ENTRIES = -1
+    try:
+        h = WordPieceHybrid(load_bytes(blob), device="cuda")
+        cpu = WordPieceHybrid(load_bytes(blob), device="cpu")
+    finally:
+        lexer.DENSE_MAX_ENTRIES = saved
+    assert "chain" not in vars(h.tables)
+    x = torch.full((1, 128), -1, dtype=torch.int32, device="cuda")
+    lexer.wp_subword_pass(h.tables, x, x, h._l_iw, h._r_iw, 18)
+    chain = vars(h.tables)["chain"]
+    assert chain.is_cuda and chain.shape == (h.tables.n_slots, 4)
+    lexer.wp_subword_pass(h.tables, x, x, h._l_iw, h._r_iw, 18)
+    assert h.tables.chain is chain
+    assert torch.equal(chain.cpu(), cpu.tables.chain)
+
+
+def test_mbert_encode_corpus_flat_on_the_card_matches_cpu():
+    _need_cuda()
+    blob = testing.mbert_shaped_model_bytes(6000)
+    saved = lexer.DENSE_MAX_ENTRIES
+    lexer.DENSE_MAX_ENTRIES = -1
+    try:
+        kernels.reset_launches()
+        gpu = WordPieceHybrid(load_bytes(blob))
+        cpu = WordPieceHybrid(load_bytes(blob), device="cpu")
+    finally:
+        lexer.DENSE_MAX_ENTRIES = saved
+    ids, bounds = gpu.encode_corpus_flat(_wp_docs(), unk_id=100,
+                                         batch_docs=64)
+    assert kernels.launches["wp_subword_comb"] > 0
+    assert kernels.launches["wp_subword_dense"] == 0
+    cids, cbounds = cpu.encode_corpus_flat(_wp_docs(), unk_id=100,
+                                           batch_docs=64)
+    assert (ids == cids).all() and (bounds == cbounds).all()
