@@ -58,6 +58,7 @@ from .. import kernels, native
 from ..formats.consts import SP_DELIMITER
 from ..ops import bpe as bpe_ops
 from ..ops import unigram as uni_ops
+from . import metrics
 
 UNIT_MAX = 64  # longest unit the NumPy path handles (p99.9 of real text)
 ID_SHIFT = 21  # compact lane layout: (id + 1) | (start << ID_SHIFT)
@@ -328,17 +329,25 @@ class UnitRunner:
         tok = self.tok
         return launch_rows(tok, tok.n_doc, lw if bounded or tok.is_bpe else None)
 
-    def dispatch_docs(self, docs_b: list[bytes], unk_id: int, cache=None):
+    def dispatch_docs(self, docs_b: list[bytes], unk_id: int, cache=None,
+                      counters=None):
+        """Queue a batch's device pass: native ``units_analyze`` (timed as
+        the stage "dispatch.analyze"), the three regions' launches and one
+        copy to the host.  Returns the state for :meth:`collect_docs`,
+        which counts into the same ``counters`` (the global ones by
+        default)."""
         tok = self.tok
         N = tok.n_doc
         dev = tok.device
+        c = counters or metrics.global_counters()
         if not (self.compact_ok and 0 <= unk_id < (1 << 20)):
             raise ValueError(f"unk_id {unk_id} does not fit the compact lanes")
-        nu = native.units_analyze(
-            docs_b, N, tok._sym2iw, self.spm_iw,
-            tok.seg.use_raw_bytes, tok.seg.no_dummy_prefix, tok.seg.charmap,
-            cache=cache,
-        )
+        with metrics.stage("dispatch.analyze", c):
+            nu = native.units_analyze(
+                docs_b, N, tok._sym2iw, self.spm_iw,
+                tok.seg.use_raw_bytes, tok.seg.no_dummy_prefix,
+                tok.seg.charmap, cache=cache,
+            )
         R = nu.n_rows
         out = torch.empty((R, N + 2), dtype=torch.int32, device=dev)
         if R:
@@ -357,15 +366,22 @@ class UnitRunner:
                         xd[lo:hi], ld[lo:hi], unk_id, lw=lw, bounded=bounded)
                     pack_out_compact(ids, st, counts, fb, out=out[lo:hi])
         host, done = _to_host(out)
-        return nu, host, done
+        return nu, host, done, c
 
     def collect_docs(self, state):
         """Returns (flat ids int32, bounds int64 (B+1,), need_fb bool (B,),
-        status uint8 (B,) — 0 ok / 1 invalid / 2 overflow)."""
-        nu, host, done = state
-        if done is not None:
-            done.synchronize()
-        ids, bounds, need = nu.stitch(host.numpy(), ID_SHIFT)
+        status uint8 (B,) — 0 ok / 1 invalid / 2 overflow).  Times the wait
+        for the card ("collect.wait") and the native stitch
+        ("collect.stitch"), and counts the rows K4 flagged (the last lane)
+        in ``flagged_rows``."""
+        nu, host, done, c = state
+        with metrics.stage("collect.wait", c):
+            if done is not None:
+                done.synchronize()
+        rows = host.numpy()
+        c.flagged_rows += int(np.count_nonzero(rows[:, -1]))
+        with metrics.stage("collect.stitch", c):
+            ids, bounds, need = nu.stitch(rows, ID_SHIFT)
         return ids, bounds, need, nu.status
 
     def encode_docs(self, docs_b: list[bytes], unk_id: int):
@@ -402,11 +418,14 @@ class UnitRunner:
 
     # Ported from blingfire_tpu/runtime/dedup.py:524-587 (collect): flat
     # ids and bounds for the batch pipeline; collect() gives JAX's lists.
-    def collect_flat(self, state):
+    def collect_flat(self, state, counters=None):
         """(ids int32, bounds int64 (B+1,), need bool (B,)) of a
         :meth:`dispatch`: a document marked ``need`` (a unit past UNIT_MAX,
         or a unit in a row the device flags) has no ids here.  Tokens go to
-        units by binary search (dedup.py:524-587)."""
+        units by binary search (dedup.py:524-587).  The flagged rows are
+        counted in ``counters.flagged_rows`` (the global counters by
+        default)."""
+        c = counters or metrics.global_counters()
         ub, u_row, u_off, N, host, done = state
         if done is not None:
             done.synchronize()
@@ -421,6 +440,7 @@ class UnitRunner:
         row_starts = packed[:, N : 2 * N]
         row_counts = packed[:, 2 * N]
         row_fb = packed[:, 2 * N + 1] != 0
+        c.flagged_rows += int(np.count_nonzero(row_fb))
 
         # token -> unit assignment: tokens are position-ordered within each
         # row, so global keys (row*N + start) are sorted row-major; each

@@ -39,6 +39,7 @@ are not ported; the rows of a batch go to the device grouped by width
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -358,10 +359,10 @@ class SpTokenizer:
                     ctypes.c_void_p(self._nfb), bool(self.seg.no_dummy_prefix))
         return self._nfb or None
 
-    def _fallback_ids(self, d: bytes, unk_id: int, c=None) -> list[int]:
-        """Host-path ids of one fallback document: the native TextToIds, or
-        the scalar oracle where it gives no answer in [0, cap] (host.py:469-485;
-        counted in ``c.oracle_docs``)."""
+    def _fallback_native(self, d: bytes, unk_id: int, c=None) -> np.ndarray:
+        """Host-path ids (int32) of one fallback document: the native
+        TextToIds, or the scalar oracle where it gives no answer in [0, cap]
+        (host.py:469-485; counted in ``c.oracle_docs``)."""
         h = self._native_fallback_handle()
         if h is not None:
             cap = len(d) + 16
@@ -370,26 +371,50 @@ class SpTokenizer:
                 ctypes.c_void_p(h), d, len(d),
                 arr.ctypes.data_as(ctypes.c_void_p), cap, unk_id)
             if 0 <= n <= cap:
-                return arr[:n].tolist()
+                return arr[:n]
         if c is not None:
             c.oracle_docs += 1
-        return self._oracle.text_to_ids(d, unk_id=unk_id)
+        return np.asarray(self._oracle.text_to_ids(d, unk_id=unk_id), np.int32)
+
+    def _fallback_ids(self, d: bytes, unk_id: int, c=None) -> list[int]:
+        """Host-path ids of one fallback document (:meth:`_fallback_native`)."""
+        return self._fallback_native(d, unk_id, c).tolist()
+
+    def _fallback_batch(self, docs: list[bytes], unk_id: int, c
+                        ) -> list[list[int]]:
+        """Host-path ids of a batch's fallback documents, counted in
+        ``c.fallback_docs`` and ``c.fallback_bytes``.  Each document's
+        native call is timed alone, and their sum goes to the stage
+        "fallback.native" once a batch: a profiler range a document would
+        weigh on a traced run."""
+        clock = time.perf_counter
+        native_s = 0.0
+        out = []
+        for d in docs:
+            t = clock()
+            got = self._fallback_native(d, unk_id, c)
+            native_s += clock() - t
+            out.append(got.tolist())
+        c.stage_seconds["fallback.native"] += native_s
+        c.fallback_docs += len(docs)
+        c.fallback_bytes += sum(map(len, docs))
+        return out
 
     def _patch_fallbacks(self, chunk, ids, bounds, need, status, unk_id, c):
         """Replace the (rare) fallback docs' empty spans in a flat result:
         invalid -> 0 ids, rest -> the native runtime.  Returns updated (ids,
         bounds)."""
         repl: dict[int, list[int]] = {}
-        need_idx = np.flatnonzero(need)
-        for k in need_idx:
+        patch = []
+        for k in np.flatnonzero(need):
             k = int(k)
-            d = chunk[k]
-            if len(d) == 0:
+            if len(chunk[k]) == 0:
                 repl[k] = []
                 c.invalid_docs += 1
             else:
-                repl[k] = self._fallback_ids(d, unk_id, c)
-                c.fallback_docs += 1
+                patch.append(k)
+        repl.update(zip(patch, self._fallback_batch(
+            [chunk[k] for k in patch], unk_id, c)))
         return splice_docs(ids, bounds, repl)
 
     # ------------------------------------------------ the classic doc rows
@@ -489,9 +514,10 @@ class SpTokenizer:
         return len(lengths), groups, done
 
     @staticmethod
-    def _rows_out(handle):
+    def _rows_out(handle, c=None):
         """(ids int32, the rows' tokens back to back in row order; counts
-        int64 (R,); fallback bool (R,)) of a :meth:`_classic_rows` pass."""
+        int64 (R,); fallback bool (R,)) of a :meth:`_classic_rows` pass; the
+        flagged rows counted in ``c.flagged_rows``."""
         R, groups, done = handle
         if done is not None:
             done.synchronize()
@@ -500,6 +526,8 @@ class SpTokenizer:
         for idx, (_ids, cnt, f) in groups:
             counts[idx] = cnt.numpy()
             fb[idx] = f.numpy()
+        if c is not None:
+            c.flagged_rows += int(np.count_nonzero(fb))
         off = np.zeros(R + 1, np.int64)
         np.cumsum(counts, out=off[1:])
         ids = np.empty(int(off[-1]), np.int32)
@@ -541,7 +569,7 @@ class SpTokenizer:
             seg.no_dummy_prefix, seg.charmap)
         return (x[0, : ln[0]], spm[0, : ln[0]]) if status[0] == 0 else None
 
-    def _encode_overflow(self, docs: list[bytes], unk_id: int
+    def _encode_overflow(self, docs: list[bytes], unk_id: int, c=None
                          ) -> list[list[int] | None]:
         """Device ids of documents longer than ``row_max`` (host.py:331-398):
         prep each whole document, split it at ▁ (:meth:`_split_chunks`),
@@ -550,7 +578,8 @@ class SpTokenizer:
         (:meth:`_crossed`, one walk over all the documents); JAX sends its
         long documents to the host instead.  None where no split fits (or
         "▁" alone is no piece), the input is invalid or the device flags a
-        chunk: those take the fallback."""
+        chunk: those take the fallback.  Flagged rows are counted in
+        ``c.flagged_rows``."""
         results: list[list[int] | None] = [None] * len(docs)
         if not self._splittable:
             return results
@@ -578,7 +607,8 @@ class SpTokenizer:
         lengths = np.array([len(r) for r in rows], np.int32)
         for r, ch in enumerate(rows):
             x[r, : len(ch)] = ch
-        ids, counts, fb = self._rows_out(self._classic_rows(x, lengths, unk_id))
+        ids, counts, fb = self._rows_out(self._classic_rows(x, lengths, unk_id),
+                                         c)
         off = np.concatenate([[0], np.cumsum(counts)])
         row = 0
         for i, k in per_doc:
@@ -599,7 +629,7 @@ class SpTokenizer:
         """The batch's flat (ids, bounds) of a :meth:`_classic_dispatch`."""
         rows, status, lengths, handle = state
         with metrics.stage("collect", c):
-            ids, counts, fb = self._rows_out(handle)
+            ids, counts, fb = self._rows_out(handle, c)
             cnt = np.zeros(len(docs_b), np.int64)
             cnt[rows] = counts
             bounds = np.zeros(len(docs_b) + 1, np.int64)
@@ -614,11 +644,11 @@ class SpTokenizer:
         and the replacements ``repl`` (document -> ids): the documents of
         the mask ``over`` through :meth:`_encode_overflow` (timed as the
         stage "chunk"), and documents the device flags (``fb_docs``) or no
-        split holds through :meth:`_fallback_ids` (the stage "fallback")."""
+        split holds through :meth:`_fallback_batch` (the stage "fallback")."""
         with metrics.stage("chunk", c):
             over_idx = np.flatnonzero(over)
             chunked = self._encode_overflow([docs_b[k] for k in over_idx],
-                                            unk_id)
+                                            unk_id, c)
             n_repl = len(repl)
             repl.update((int(k), got) for k, got in zip(over_idx, chunked)
                         if got is not None)
@@ -628,9 +658,8 @@ class SpTokenizer:
                                             if int(k) not in repl]
         if need:
             with metrics.stage("fallback", c):
-                for k in need:
-                    repl[k] = self._fallback_ids(docs_b[k], unk_id, c)
-            c.fallback_docs += len(need)
+                repl.update(zip(need, self._fallback_batch(
+                    [docs_b[k] for k in need], unk_id, c)))
         return splice_docs(ids, bounds, repl) if repl else (ids, bounds)
 
     # ---------------------------------------------------- the NumPy unit path
@@ -651,11 +680,11 @@ class SpTokenizer:
         x, lengths, status, st = state
         c.units_np_batches += 1
         with metrics.stage("collect", c):
-            ids, bounds, need = self._unit_runner().collect_flat(st)
+            ids, bounds, need = self._unit_runner().collect_flat(st, c)
             rows = np.flatnonzero(need & (lengths > 0)
                                   & (lengths <= self.row_max))
             cids, counts, fb = self._rows_out(
-                self._classic_rows(x[rows], lengths[rows], unk_id))
+                self._classic_rows(x[rows], lengths[rows], unk_id), c)
             off = np.zeros(len(rows) + 1, np.int64)
             np.cumsum(counts, out=off[1:])
             repl = {int(k): cids[off[i] : off[i + 1]].tolist()
@@ -663,6 +692,18 @@ class SpTokenizer:
         over = (status == 2) | (need & (lengths > self.row_max))
         return self._finish(docs_b, ids, bounds, repl, rows[fb], over, status,
                             unk_id, c)
+
+    def _units_collect(self, docs_b: list[bytes], state, unk_id: int, c):
+        """The batch's flat (ids, bounds) of ``UnitRunner.dispatch_docs``:
+        the stages "collect" (the wait and the native stitch) and, apart
+        from it, "fallback" (one native call a flagged document)."""
+        with metrics.stage("collect", c):
+            ids, bounds, need, status = self._unit_runner().collect_docs(state)
+        if need.any():
+            with metrics.stage("fallback", c):
+                ids, bounds = self._patch_fallbacks(
+                    docs_b, ids, bounds, need, status, unk_id, c)
+        return ids, bounds
 
     def _route(self, dedup: bool | None = None):
         """(dispatch, collect) of this model's batch path: the native unit
@@ -694,7 +735,9 @@ class SpTokenizer:
         a model that is not chunk-safe the classic doc rows (host.py:540-551,
         :673-817)."""
         c = counters or metrics.global_counters()
-        docs_b = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
+        with metrics.stage("call.split", c):
+            docs_b = [d.encode("utf-8") if isinstance(d, str) else d
+                      for d in docs]
         route = self._route()
         if route is not None:
             dispatch_b, collect_b = route
@@ -709,19 +752,12 @@ class SpTokenizer:
         ucache = native.UnitCache()
 
         def dispatch(chunk):
-            state = runner.dispatch_docs(chunk, unk_id, cache=ucache)
+            state = runner.dispatch_docs(chunk, unk_id, cache=ucache,
+                                         counters=c)
             return state, state[0].n_rows
 
         def collect(chunk, state):
-            with metrics.stage("collect", c):
-                ids, bounds, need, status = runner.collect_docs(state)
-            if need.any():
-                # timed apart from the stitch: one native call a document
-                with metrics.stage("fallback", c):
-                    ids, bounds = self._patch_fallbacks(
-                        chunk, ids, bounds, need, status, unk_id, c
-                    )
-            return ids, bounds
+            return self._units_collect(chunk, state, unk_id, c)
 
         out = run_pipeline(docs_b, batch_docs, dispatch, collect, c)
         c.cache_units = ucache.stats()["units"]
@@ -731,21 +767,24 @@ class SpTokenizer:
                      dedup: bool | None = None) -> list[list[int]]:
         """Per-document id lists for one batch (host.py:605-670): the unit
         path (native, or NumPy off the compact lanes) when the model is
-        chunk-safe and ``dedup`` is not False, else the classic doc rows."""
+        chunk-safe and ``dedup`` is not False, else the classic doc rows.
+        The native unit path times the stages of the corpus path
+        ("dispatch", "collect", "fallback" and their sub-stages); every
+        route times the lists' building as "lists"."""
         docs_b = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
         c = metrics.global_counters()
         route = self._route(dedup)
         if route is None:
-            ids, bounds, need, status = self._unit_runner().encode_docs(
-                docs_b, unk_id)
-            if need.any():
-                ids, bounds = self._patch_fallbacks(
-                    docs_b, ids, bounds, need, status, unk_id, c)
+            with metrics.stage("dispatch", c):
+                state = self._unit_runner().dispatch_docs(docs_b, unk_id,
+                                                          counters=c)
+            ids, bounds = self._units_collect(docs_b, state, unk_id, c)
         else:
             state, _rows = route[0](docs_b, unk_id)
             ids, bounds = route[1](docs_b, state, unk_id, c)
-        return [ids[bounds[i] : bounds[i + 1]].tolist()
-                for i in range(len(docs_b))]
+        with metrics.stage("lists", c):
+            return [ids[bounds[i] : bounds[i + 1]].tolist()
+                    for i in range(len(docs_b))]
 
     def encode_corpus(self, docs: list[bytes | str], unk_id: int = 0,
                       batch_docs: int = 2048, counters=None
@@ -766,8 +805,9 @@ def run_pipeline(docs_b: list[bytes], batch_docs: int, dispatch, collect,
 
     ``dispatch(chunk)`` -> (state, rows dispatched), timed as the stage
     "dispatch"; ``collect(chunk, state)`` -> the batch's flat (ids, bounds),
-    timing its own stages.  Returns the corpus's flat (ids, bounds) and
-    adds to the counters ``c``."""
+    timing its own stages.  The batching is timed as "call.split" and the
+    joining of the batches' parts as "call.join".  Returns the corpus's
+    flat (ids, bounds) and adds to the counters ``c``."""
     parts: list[tuple[np.ndarray, np.ndarray]] = []
     inflight: list = []
 
@@ -776,7 +816,9 @@ def run_pipeline(docs_b: list[bytes], batch_docs: int, dispatch, collect,
         c.tokens_out += int(bounds[-1])
         parts.append((ids, bounds))
 
-    for chunk in _batches_by_bytes(docs_b, batch_docs):
+    with metrics.stage("call.split", c):
+        batches = _batches_by_bytes(docs_b, batch_docs)
+    for chunk in batches:
         with metrics.stage("dispatch", c):
             state, n_rows = dispatch(chunk)
         c.dispatched_rows += n_rows
@@ -788,18 +830,19 @@ def run_pipeline(docs_b: list[bytes], batch_docs: int, dispatch, collect,
     while inflight:
         finish(inflight.pop(0))
     c.bytes_in += sum(map(len, docs_b))
-    if len(parts) == 1:
-        return parts[0]
-    ids = np.concatenate([i for i, _b in parts] or [np.zeros(0, np.int32)],
-                         dtype=np.int32)
-    bounds = np.zeros(len(docs_b) + 1, np.int64)
-    t = d = 0
-    for pi, pb in parts:
-        nb = len(pb) - 1
-        bounds[d + 1 : d + 1 + nb] = pb[1:] + t
-        t += len(pi)
-        d += nb
-    return ids, bounds
+    with metrics.stage("call.join", c):
+        if len(parts) == 1:
+            return parts[0]
+        ids = np.concatenate([i for i, _b in parts]
+                             or [np.zeros(0, np.int32)], dtype=np.int32)
+        bounds = np.zeros(len(docs_b) + 1, np.int64)
+        t = d = 0
+        for pi, pb in parts:
+            nb = len(pb) - 1
+            bounds[d + 1 : d + 1 + nb] = pb[1:] + t
+            t += len(pi)
+            d += nb
+        return ids, bounds
 
 
 def splice_docs(ids: np.ndarray, bounds: np.ndarray,

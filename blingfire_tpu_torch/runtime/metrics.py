@@ -2,12 +2,20 @@
 # units_np_batches are the port's; profile_trace takes torch.profiler where
 # the JAX package takes jax.profiler).
 """Observability: throughput counters, per-stage host timers and a
-torch.profiler trace capture."""
+torch.profiler trace capture.
+
+A stage (:func:`stage`) is the one span of the program: it adds its seconds
+to ``Counters.stage_seconds`` and, while a torch.profiler profile records,
+opens the profiler range ``stage.<name>`` on the profile's clock, so that a
+trace (:func:`profile_trace`) names what the host did while the card
+waited.  A sub-stage is named ``<parent>.<child>`` and runs inside its
+parent."""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import sys
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -19,6 +27,7 @@ class Counters:
     docs_in: int = 0
     tokens_out: int = 0
     fallback_docs: int = 0
+    fallback_bytes: int = 0  # the bytes of the fallback documents
     # fallback documents the native runtime did not answer (the scalar
     # oracle took them)
     oracle_docs: int = 0
@@ -29,6 +38,7 @@ class Counters:
     # cross-batch unit cache (dedup cumulative over the corpus)
     cache_units: int = 0  # distinct units interned over the run
     dispatched_rows: int = 0  # device rows actually dispatched (cache misses)
+    flagged_rows: int = 0  # device rows whose fallback flag was set
     # batches through the NumPy unit path (a chunk-safe model off the
     # compact lanes, runtime/dedup.py)
     units_np_batches: int = 0
@@ -40,12 +50,14 @@ class Counters:
             "docs_in": self.docs_in,
             "tokens_out": self.tokens_out,
             "fallback_docs": self.fallback_docs,
+            "fallback_bytes": self.fallback_bytes,
             "oracle_docs": self.oracle_docs,
             "chunked_docs": self.chunked_docs,
             "invalid_docs": self.invalid_docs,
             "batches": self.batches,
             "cache_units": self.cache_units,
             "dispatched_rows": self.dispatched_rows,
+            "flagged_rows": self.flagged_rows,
             "units_np_batches": self.units_np_batches,
             "stage_seconds": dict(self.stage_seconds),
             "bytes_per_second": self.bytes_in / total if total > 0 else 0.0,
@@ -64,12 +76,25 @@ def global_counters() -> Counters:
 
 @contextlib.contextmanager
 def stage(name: str, counters: Counters | None = None):
+    """Time the block into ``counters.stage_seconds[name]`` (the global
+    counters by default), inside the profiler range ``stage.<name>`` while
+    a torch.profiler profile records.  Keep card work out of a sub-stage:
+    the profiler mirrors a range over the card work launched inside it."""
     c = counters or _GLOBAL
+    # torch's own flag of a recording profiler; no profiler records before
+    # torch is imported
+    prof = sys.modules.get("torch.autograd.profiler")
+    rng = None
+    if prof is not None and prof._is_profiler_enabled:
+        rng = prof.record_function("stage." + name)
+        rng.__enter__()
     t0 = time.perf_counter()
     try:
         yield c
     finally:
         c.stage_seconds[name] += time.perf_counter() - t0
+        if rng is not None:
+            rng.__exit__(None, None, None)
 
 
 @contextlib.contextmanager

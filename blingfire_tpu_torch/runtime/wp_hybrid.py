@@ -404,6 +404,7 @@ class WordPieceHybrid:
                     ids, bounds = self._patch_native(chunk, ids, bounds, need,
                                                      unk_id)
             c.fallback_docs += n_fb
+            c.fallback_bytes += sum(len(chunk[k]) for k in np.flatnonzero(need))
             return ids, bounds
 
         out = run_pipeline(docs_b, batch_docs, dispatch, collect, c)

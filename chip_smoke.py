@@ -2163,7 +2163,7 @@ def main() -> int:
     # the design without chunk rows for a model that is not chunk-safe, as
     # JAX's encode_corpus has it: every document past the window to the
     # native runtime; the same ids, and its time beside the calls above
-    tok_b._encode_overflow = lambda over, unk_id: [None] * len(over)
+    tok_b._encode_overflow = lambda over, unk_id, c=None: [None] * len(over)
     c_n = metrics.Counters()
     t0 = time.perf_counter()
     ids_n, bounds_n = tok_b.encode_corpus_flat(docs, counters=c_n)

@@ -391,3 +391,14 @@ def test_profile_trace_writes_a_chrome_trace(paths, tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # the batch's stages, as ranges on the trace's clock, each sub-stage
+    # inside its parent
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("name", "").startswith("stage.")}
+    assert {"stage.dispatch", "stage.dispatch.analyze", "stage.collect",
+            "stage.collect.wait", "stage.collect.stitch",
+            "stage.lists"} <= set(spans)
+    for sub, parent in (("dispatch.analyze", "dispatch"),
+                        ("collect.stitch", "collect")):
+        (a, b), (lo, hi) = spans["stage." + sub], spans["stage." + parent]
+        assert lo <= a <= b <= hi
