@@ -38,7 +38,7 @@ KERNELS = {
     "bpe_walk": ("bpe_walk.cu", "bf_bpe_walk",
                  [_P, _P, _P, _I64] + [_P] * 8 + [_I] * 11 + [_P] * 3),
     "bpe_resolve": ("bpe_resolve.cu", "bf_bpe_resolve",
-                    [_P] * 6 + [_I] * 9 + [_P] * 5),
+                    [_P] * 6 + [_I] * 10 + [_P] * 5),
     "scatter_trie": ("scatter_trie.cu", "bf_scatter_trie",
                      [_P, _P, _I64, _P, _I64]),
     "unigram_walk": ("unigram_walk.cu", "bf_unigram_walk",

@@ -8,9 +8,10 @@
 // compaction to a_max arcs, the same ((rank desc,) id asc, start asc) order
 // with ties kept in slab order, the same lanes (unemitted lanes hold 0 +
 // id_offset with start and end 0) and the same fallback flags (slot_overflow
-// | arc_overflow | anomaly).  The rank key is the reference's order, not
-// JAX's: -0.0 ties +0.0, and an unknown run's +0.0 sorts before every
-// negative rank (ROADMAP.md section C item 5; ops/bpe.py::float_desc_key).
+// | arc_overflow | anomaly), unless the caller asks for marks (below).  The
+// rank key is the reference's order, not JAX's: -0.0 ties +0.0, and an
+// unknown run's +0.0 sorts before every negative rank (ROADMAP.md section C
+// item 5; ops/bpe.py::float_desc_key).
 //
 // One block of ceil(N/32) warps handles one packed row, one thread a start:
 //   FILTER  each thread reads its LR match slots (coalesced along p), finds
@@ -37,6 +38,17 @@
 //   EMIT    last claim wins at each start (a start's arcs share its
 //           segment); starts inside a claimed arc are dropped; a block
 //           prefix sum compacts the tokens left.
+//
+// Marks (mark != 0; every launch whose rows go to the native stitch; only
+// region B's unbounded walk can stop at its cap).  A walk still live at
+// its depth cap (slot_overflow) flags the token that covers its start and
+// not the row: a block prefix count of the row's overflowed positions, one
+// difference a token, sets bit 10 (MARK_BIT) of the token's out_starts
+// (N <= 1,024 leaves it free), and the row's flag keeps arc_overflow |
+// anomaly, and an overflowed position no token covers.  Under a chunk-safe
+// vocabulary a match stays inside its unit, so the marked tokens name the
+// units whose ids the cap may have changed; the other units of the row are
+// exact.  A row with no overflowed position costs nothing more.
 //
 // Keys.  Plain and priority modes: one 64-bit word, segment (10 bits) at
 // 42, id + 2^20 (21) at 21, start (10) at 11, end (11) at 0.  Rank mode:
@@ -72,6 +84,7 @@ __device__ __forceinline__ uint32_t rank_key(float r) {
 }
 
 constexpr int ID_BIAS = 1 << 20;  // ids lie in [-2^20, 2^20): 21 bits
+constexpr int MARK_BIT = 1 << 10;  // a marked token's bit in out_starts
 constexpr int SEG_SHIFT = 42, RANK_SEG_SHIFT = 53, RANK_SHIFT = 21;
 
 // start and end of an arc: bits 11..20 and 0..10 of the key's last word
@@ -86,7 +99,7 @@ __global__ void bpe_resolve_kernel(
     const int32_t* __restrict__ x, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ prio2id, int B, int N, int LR, int a_max,
     int P_max, int spm_iw, int unk_id, int id_offset, int fast, int trie_v,
-    int32_t* __restrict__ out_ids, int32_t* __restrict__ out_starts,
+    int mark, int32_t* __restrict__ out_ids, int32_t* __restrict__ out_starts,
     int32_t* __restrict__ out_ends, int32_t* __restrict__ counts,
     uint8_t* __restrict__ fallback) {
     extern __shared__ unsigned char smem[];
@@ -97,12 +110,14 @@ __global__ void bpe_resolve_kernel(
     int32_t* win_id = reinterpret_cast<int32_t*>(span + (RANK ? P_max : 0));  // N
     int32_t* win_end = win_id + N;  // N
     // run_end until the keys are built, then each position's segment, then
-    // each segment's first sorted arc
+    // each segment's first sorted arc, then (marks) the inclusive count of
+    // overflowed positions
     int32_t* pos_a = win_end + N;  // N
     int* buf = reinterpret_cast<int*>(pos_a + N);  // 32
     uint8_t* unk = reinterpret_cast<uint8_t*>(buf + 32);  // N
     uint8_t* has_win = unk + N;  // N
     uint8_t* occ = has_win + N;  // N + 1: position inside a claimed arc
+    __shared__ int n_cov;  // marks: overflowed positions inside marked tokens
 
     const int b = blockIdx.x, p = threadIdx.x;
     const int T = blockDim.x;
@@ -256,6 +271,15 @@ __global__ void bpe_resolve_kernel(
         }
     }
     __syncthreads();
+    const bool mark_row = mark && any_ovf;  // uniform across the block
+    if (mark_row) {
+        int incl;
+        block_scan(valid && slot_overflow[row + p] ? 1 : 0, buf, OpSum(), 0,
+                   &incl, nullptr);
+        if (in) pos_a[p] = incl;
+        if (p == 0) n_cov = 0;
+        __syncthreads();
+    }
 
     // ------------------------------------------------------------------ EMIT
     const bool tok = valid && has_win[p] && !occ[p];
@@ -267,18 +291,29 @@ __global__ void bpe_resolve_kernel(
             const int c = raw < 0 ? 0 : (raw > trie_v - 1 ? trie_v - 1 : raw);
             raw = raw == 0 ? unk_id : prio2id[c];
         }
+        const int en = win_end[p];
+        int st = p;
+        if (mark_row) {
+            const int n_ov = pos_a[en < N ? en : N - 1] - (p > 0 ? pos_a[p - 1] : 0);
+            if (n_ov > 0) {
+                st |= MARK_BIT;
+                atomicAdd(&n_cov, n_ov);
+            }
+        }
         out_ids[row + slot] = raw + id_offset;
-        out_starts[row + slot] = p;
-        out_ends[row + slot] = win_end[p];
+        out_starts[row + slot] = st;
+        out_ends[row + slot] = en;
     }
     if (in && p >= count) {
         out_ids[row + p] = id_offset;
         out_starts[row + p] = 0;
         out_ends[row + p] = 0;
     }
+    if (mark_row) __syncthreads();
     if (p == 0) {
         counts[b] = count;
-        fallback[b] = (any_ovf || n_arcs > a_max || any_anom) ? 1 : 0;
+        const bool whole = mark ? mark_row && n_cov < pos_a[N - 1] : any_ovf;
+        fallback[b] = (whole || n_arcs > a_max || any_anom) ? 1 : 0;
     }
 }
 
@@ -287,9 +322,9 @@ static int launch(const int32_t* m_pack, const float* m_rank,
                   const uint8_t* slot_overflow, const int32_t* x,
                   const int32_t* lengths, const int32_t* prio2id, int B, int N,
                   int LR, int a_max, int spm_iw, int unk_id, int id_offset,
-                  int fast, int trie_v, int32_t* out_ids, int32_t* out_starts,
-                  int32_t* out_ends, int32_t* counts, uint8_t* fallback,
-                  cudaStream_t stream) {
+                  int fast, int trie_v, int mark, int32_t* out_ids,
+                  int32_t* out_starts, int32_t* out_ends, int32_t* counts,
+                  uint8_t* fallback, cudaStream_t stream) {
     const int T = ((N + 31) / 32) * 32;
     int P_max = 1;
     while (P_max < a_max) P_max <<= 1;
@@ -303,27 +338,29 @@ static int launch(const int32_t* m_pack, const float* m_rank,
     }
     bpe_resolve_kernel<RANK><<<B, T, smem, stream>>>(
         m_pack, m_rank, slot_overflow, x, lengths, prio2id, B, N, LR, a_max,
-        P_max, spm_iw, unk_id, id_offset, fast, trie_v, out_ids, out_starts,
-        out_ends, counts, fallback);
+        P_max, spm_iw, unk_id, id_offset, fast, trie_v, mark, out_ids,
+        out_starts, out_ends, counts, fallback);
     return (int)cudaGetLastError();
 }
 
-// m_rank == NULL: no rank key (plain and merge-priority modes)
+// m_rank == NULL: no rank key (plain and merge-priority modes); mark != 0:
+// overflow marks the token, not the row (N <= 1,024)
 extern "C" int bf_bpe_resolve(const int32_t* m_pack, const float* m_rank,
                               const uint8_t* slot_overflow, const int32_t* x,
                               const int32_t* lengths, const int32_t* prio2id,
                               int B, int N, int LR, int a_max, int spm_iw,
                               int unk_id, int id_offset, int fast, int trie_v,
-                              int32_t* out_ids, int32_t* out_starts,
+                              int mark, int32_t* out_ids, int32_t* out_starts,
                               int32_t* out_ends, int32_t* counts,
                               uint8_t* fallback, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (m_rank)
         return launch<true>(m_pack, m_rank, slot_overflow, x, lengths, prio2id,
                             B, N, LR, a_max, spm_iw, unk_id, id_offset, fast,
-                            trie_v, out_ids, out_starts, out_ends, counts,
-                            fallback, s);
+                            trie_v, mark, out_ids, out_starts, out_ends,
+                            counts, fallback, s);
     return launch<false>(m_pack, m_rank, slot_overflow, x, lengths, prio2id, B,
                          N, LR, a_max, spm_iw, unk_id, id_offset, fast, trie_v,
-                         out_ids, out_starts, out_ends, counts, fallback, s);
+                         mark, out_ids, out_starts, out_ends, counts, fallback,
+                         s);
 }

@@ -74,7 +74,7 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
             ]
             lib.btl_units_free.restype = None
             lib.btl_units_free.argtypes = [ctypes.c_void_p]
@@ -138,8 +138,10 @@ class NativeUnits:
 
     Produced by :func:`units_analyze`; ``px``/``plen``/``status`` are the
     device inputs, :meth:`stitch` consumes the device's packed output rows
-    and returns (flat_ids, bounds, need_fb).  The native state is freed by
-    stitch (or by GC)."""
+    and returns (flat_ids, bounds, need_fb), and counts the rows the device
+    flagged (``flagged_rows``) and the units it made resolved-fallback
+    (``fallback_units``).  The native state is freed by stitch (or by
+    GC)."""
 
     def __init__(self, handle, n_docs: int, n_sym: int, counts):
         self._handle = handle
@@ -157,6 +159,10 @@ class NativeUnits:
         # units packed into THIS batch's rows (the cross-batch cache-miss
         # count when a cache is shared)
         self.n_local = int(counts[6])
+        # set by stitch: rows flagged whole or holding a marked lane, and
+        # the units resolved-fallback
+        self.flagged_rows = 0
+        self.fallback_units = 0
         lib = get_lib()
         self.px = np.empty((max(self.n_rows, 1), n_sym), np.int32)
         self.plen = np.zeros(max(self.n_rows, 1), np.int32)
@@ -170,9 +176,13 @@ class NativeUnits:
 
     def stitch(self, rows: np.ndarray, shift: int,
                row_map: np.ndarray | None = None):
-        """rows: (rows_n, n_sym+2) int32 packed device output.  row_map maps
-        packed row r -> its row index in ``rows`` (None = identity).
-        Returns (ids int32 (T,), bounds int64 (n_docs+1,), need_fb bool (n_docs,))."""
+        """rows: (rows_n, n_sym+2) int32 packed device output: lanes
+        ``(id + 1) | (start << shift)``, bit 31 K2's mark of the token
+        (prep.cpp btl_units_stitch_m), then the count and the row's flag.
+        row_map maps packed row r -> its row index in ``rows`` (None =
+        identity).  Returns (ids int32 (T,), bounds int64 (n_docs+1,),
+        need_fb bool (n_docs,)): a unit with a marked lane, or in a flagged
+        row, takes the documents that hold it to the fallback."""
         assert self._handle is not None, "stitch called twice"
         assert rows.dtype == np.int32 and rows.shape[1] == self.n_sym + 2
         rows = np.ascontiguousarray(rows)
@@ -184,6 +194,7 @@ class NativeUnits:
         out_ids = np.empty(cap, np.int32)
         bounds = np.empty(self.n_docs + 1, np.int64)
         need = np.empty(self.n_docs, np.uint8)
+        stats = np.zeros(2, np.int64)
         t = lib.btl_units_stitch_m(
             self._handle,
             rows.ctypes.data_as(ctypes.c_void_p),
@@ -195,7 +206,9 @@ class NativeUnits:
             ctypes.c_int64(cap),
             bounds.ctypes.data_as(ctypes.c_void_p),
             need.ctypes.data_as(ctypes.c_void_p),
+            stats.ctypes.data_as(ctypes.c_void_p),
         )
+        self.flagged_rows, self.fallback_units = int(stats[0]), int(stats[1])
         self.close()
         assert t >= 0, "stitch capacity exceeded (total_syms bound violated)"
         return out_ids[:t], bounds, need.astype(bool)

@@ -244,7 +244,8 @@ struct BtlUnitCache {
     // resolution state per unit:
     //   r_off < 0                unresolved
     //   r_off >= 0, r_cnt >= 0   ids = r_ids[r_off .. r_off + r_cnt)
-    //   r_off >= 0, r_cnt < 0    resolved-fallback (device flagged the row)
+    //   r_off >= 0, r_cnt < 0    resolved-fallback (the device flagged
+    //                            the unit: a marked lane of it, or its row)
     std::vector<int64_t> r_off;
     std::vector<int32_t> r_cnt;
     std::vector<uint8_t> pending;      // packed by an in-flight batch
@@ -693,29 +694,48 @@ void btl_units_emit(void* handle, int32_t* px, int32_t* plen,
 
 // Consume the device output and write flat per-doc ids.
 //
-//  rows       (rows_n, n_sym + 2) int32: lane j<count = (id+1)|(start<<shift);
-//             col n_sym = token count; col n_sym+1 = device-fallback flag
+//  rows       (rows_n, n_sym + 2) int32: lane j<count =
+//             (id+1) | (start<<shift) | (mark<<31), start below
+//             2^(31-shift); col n_sym = token count; col n_sym+1 = the
+//             row's device-fallback flag
 //  out_ids    capacity cap int32
 //  out_bounds (n_docs+1) int64 token offsets per doc (fallback docs span 0)
 //  need_fb    (n_docs) 1 = doc must take the host-oracle path
+//  out_stats  NULL, or [0] rows flagged (the flag set or a marked lane),
+//             [1] units this stitch made resolved-fallback
 // Returns total tokens written, or -1 if cap was exceeded.
 //
-// With a shared cache, this batch's freshly resolved units are stored into
-// the cache (one compact arena append per unique unit), and instances of
-// units resolved by EARLIER stitches read straight from the arena — the
-// cross-batch dedup payoff.  Unresolved non-local units (an earlier batch
-// was dispatched but never stitched) conservatively flag the doc.
+// The device flags the unit, not the row: a unit with a marked lane (K2's
+// mark of a token over a walk cut at its depth cap), or every unit of a row
+// whose flag is set, is resolved-fallback; every other unit of the row is
+// stored as resolved.  With a shared cache, this batch's freshly resolved
+// units are stored into the cache (one compact arena append per unique
+// unit), and instances of units resolved by EARLIER stitches read straight
+// from the arena — the cross-batch dedup payoff.  Unresolved non-local
+// units (an earlier batch was dispatched but never stitched) conservatively
+// flag the doc.
 int64_t btl_units_stitch_m(void* handle, const int32_t* rows, int64_t rows_n,
                            const int32_t* row_map, int shift,
                            int32_t* out_ids, int64_t cap,
-                           int64_t* out_bounds, uint8_t* need_fb) {
+                           int64_t* out_bounds, uint8_t* need_fb,
+                           int64_t* out_stats) {
     BtlUnitsState* st = (BtlUnitsState*)handle;
     BtlUnitCache* c = st->cache;
     int N = st->n_sym;
     int64_t stride = N + 2;
     int NL = (int)st->local_units.size();
-    int32_t start_mask_shift = shift;
-    int32_t id_mask = (1 << shift) - 1;
+    const uint32_t start_mask = (1u << (31 - shift)) - 1;
+    const int32_t id_mask = (1 << shift) - 1;
+    auto start_of = [&](int32_t lane) {
+        return (int32_t)(((uint32_t)lane >> shift) & start_mask);
+    };
+    int64_t flagged_rows = 0, fallback_units = 0;
+    auto set_fallback = [&](int32_t u) {
+        c->r_off[u] = (int64_t)c->r_ids.size();
+        c->r_cnt[u] = -1;  // resolved-fallback
+        c->pending[u] = 0;
+        ++fallback_units;
+    };
 
     // resolve local units: token spans within the packed rows -> cache arena
     // (row_map: packed row r lives at device row row_map[r]; NULL = identity
@@ -725,17 +745,14 @@ int64_t btl_units_stitch_m(void* handle, const int32_t* rows, int64_t rows_n,
         if (dr < 0 || dr >= rows_n) continue;
         const int32_t* row = rows + dr * stride;
         int cnt = row[N];
-        bool fb = row[N + 1] != 0;
         int ub = st->row_unit_off[r], ue = st->row_unit_off[r + 1];
-        if (fb) {
-            for (int q = ub; q < ue; ++q) {
-                int32_t u = st->local_units[st->row_units[q]];
-                c->r_off[u] = (int64_t)c->r_ids.size();
-                c->r_cnt[u] = -1;  // resolved-fallback
-                c->pending[u] = 0;
-            }
+        if (row[N + 1] != 0) {
+            ++flagged_rows;
+            for (int q = ub; q < ue; ++q)
+                set_fallback(st->local_units[st->row_units[q]]);
             continue;
         }
+        bool marked_row = false;
         int j = 0;
         for (int q = ub; q < ue; ++q) {
             int32_t li = st->row_units[q];
@@ -743,15 +760,22 @@ int64_t btl_units_stitch_m(void* handle, const int32_t* rows, int64_t rows_n,
             int32_t uo = st->u_off[li];
             int32_t uend = uo + (c->u_soff[u + 1] - c->u_soff[u]);
             // tokens are start-ascending within the row
-            while (j < cnt && (row[j] >> start_mask_shift) < uo) ++j;
-            c->r_off[u] = (int64_t)c->r_ids.size();
+            while (j < cnt && start_of(row[j]) < uo) ++j;
             int j0 = j;
-            while (j < cnt && (row[j] >> start_mask_shift) < uend) ++j;
+            bool marked = false;
+            while (j < cnt && start_of(row[j]) < uend) marked |= row[j++] < 0;
+            if (marked) {
+                marked_row = true;
+                set_fallback(u);
+                continue;
+            }
+            c->r_off[u] = (int64_t)c->r_ids.size();
             c->r_cnt[u] = j - j0;
             for (int q2 = j0; q2 < j; ++q2)
                 c->r_ids.push_back((row[q2] & id_mask) - 1);
             c->pending[u] = 0;
         }
+        flagged_rows += marked_row;
     }
     // rows not covered by the transfer (bug guard): resolved-fallback
     for (int li = 0; li < NL; ++li) {
@@ -759,12 +783,12 @@ int64_t btl_units_stitch_m(void* handle, const int32_t* rows, int64_t rows_n,
         int64_t dr = row_map ? row_map[r] : r;
         if (dr < 0 || dr >= rows_n) {
             int32_t u = st->local_units[li];
-            if (c->r_off[u] < 0) {
-                c->r_off[u] = 0;
-                c->r_cnt[u] = -1;
-                c->pending[u] = 0;
-            }
+            if (c->r_off[u] < 0) set_fallback(u);
         }
+    }
+    if (out_stats) {
+        out_stats[0] = flagged_rows;
+        out_stats[1] = fallback_units;
     }
 
     int64_t t = 0;
@@ -796,7 +820,7 @@ int64_t btl_units_stitch(void* handle, const int32_t* rows, int64_t rows_n,
                          int shift, int32_t* out_ids, int64_t cap,
                          int64_t* out_bounds, uint8_t* need_fb) {
     return btl_units_stitch_m(handle, rows, rows_n, nullptr, shift, out_ids,
-                              cap, out_bounds, need_fb);
+                              cap, out_bounds, need_fb, nullptr);
 }
 
 void btl_units_free(void* handle) { delete (BtlUnitsState*)handle; }

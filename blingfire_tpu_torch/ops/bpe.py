@@ -51,6 +51,9 @@ L_REC = 32  # walk depth when no length class caps it (bpe.py:234)
 # shared memory.  runtime/host.py keeps every launch inside them.
 RESOLVE_MAX_N = 1024
 RESOLVE_MAX_ARCS = 4096
+# K2's mark of a token that covers an overflowed start, in its start's bit
+# 10 (bpe_resolve's ``mark``; = bpe_resolve.cu MARK_BIT)
+MARK_BIT = 1 << 10
 
 
 @dataclass(frozen=True)
@@ -411,10 +414,11 @@ def _filter_plain(tables, m_pack, x_iw, lengths, spm_iw: int):
 
 
 def _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
-                   spm_iw: int, unk_id: int, a_max: int):
+                   spm_iw: int, unk_id: int, a_max: int, mark: bool = False):
     """Plain version of K2: blingfire_tpu/ops/bpe.py::_resolve_impl, scatter
     (CPU) branch; in rank mode the arcs sort on (:func:`float_desc_key` of
-    the rank, id * N + start), the unknown runs' rank being +0.0."""
+    the rank, id * N + start), the unknown runs' rank being +0.0.  With
+    ``mark``, K2's marks (:func:`bpe_resolve`)."""
     LR, B, N = m_pack.shape
     dev = m_pack.device
     i32 = torch.int32
@@ -506,6 +510,20 @@ def _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
         return out[: B * N].reshape(B, N)
 
     counts = tok_here.sum(dim=1).to(i32)
+    over = slot_overflow & valid
+    grid_start = pos[None, :].expand(B, N)
+    whole = over.any(dim=1)
+    if mark:
+        # overflowed positions inside each token: a difference of their
+        # inclusive count at the token's end and before its start
+        n_over = over.to(i32).cumsum(dim=1)
+        before = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
+                            n_over[:, :-1]], dim=1)
+        inside = torch.where(
+            tok_here, n_over.gather(1, grid_tos.clamp(0, N - 1).long()) - before,
+            0)
+        grid_start = grid_start | torch.where(inside > 0, MARK_BIT, 0).to(i32)
+        whole = inside.sum(dim=1) < over.sum(dim=1)
     raw = emit_compact(grid_id)
     if use_prio:
         raw = torch.where(
@@ -513,9 +531,9 @@ def _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
             tables.prio2id[raw.clamp(0, tables.trie_v - 1).long()]).to(i32)
         raw = torch.where(pos[None, :] < counts[:, None], raw, 0)
     out_ids = (raw + tables.id_offset).to(i32)
-    out_starts = emit_compact(pos[None, :].expand(B, N).contiguous())
+    out_starts = emit_compact(grid_start.contiguous())
     out_ends = emit_compact(grid_tos)
-    fallback = (slot_overflow & valid).any(dim=1) | arc_overflow | anomaly
+    fallback = whole | arc_overflow | anomaly
     return out_ids, out_starts, out_ends, counts, fallback
 
 
@@ -588,6 +606,7 @@ def bpe_resolve(
     spm_iw: int,
     unk_id: int,
     a_max: int,
+    mark: bool = False,  # overflow marks the token, not the row
 ):
     """FILTER+SORT+CLAIM+EMIT: returns (ids, starts, ends int32 (B, N),
     counts int32 (B,), fallback bool (B,)).
@@ -595,7 +614,15 @@ def bpe_resolve(
     Replaces blingfire_tpu/ops/bpe.py::_resolve_impl (bpe.py:340, jit :794)
     with the fallback flags of its scatter branch
     (slot_overflow | arc_overflow | anomaly), and the rank key of the
-    reference (:func:`float_desc_key`)."""
+    reference (:func:`float_desc_key`).
+
+    With ``mark``, a start with ``slot_overflow`` flags the token that
+    covers it and not the row: such a token's start carries MARK_BIT (N is
+    at most 1,024, so starts need bits 0-9 only), and the row's flag is
+    arc_overflow | anomaly, or an overflowed position that no token covers.
+    Under a chunk-safe vocabulary a match stays inside its unit, so the
+    marked tokens name the units that the walk's depth cap may have
+    changed; the row's other tokens are exact."""
     _check_spm(spm_iw)
     if not -(1 << 20) <= unk_id < (1 << 20):
         # ids < 2^20 and N <= 1024 keep the key id * N + start inside int32,
@@ -603,10 +630,13 @@ def bpe_resolve(
         raise ValueError(f"unk_id {unk_id} does not fit 21 bits")
     if (m_rank is not None) != rank_mode(tables):
         raise ValueError("m_rank must be given in rank mode and only there")
+    LR, B, N = m_pack.shape
+    if mark and N > MARK_BIT:
+        raise ValueError(f"marks need rows of at most {MARK_BIT} symbols, "
+                         f"got {N}")
     if not kernels.on_card(m_pack):
         return _resolve_plain(tables, m_pack, m_rank, slot_overflow, x_iw,
-                              lengths, spm_iw, unk_id, a_max)
-    LR, B, N = m_pack.shape
+                              lengths, spm_iw, unk_id, a_max, mark)
     kernels.check(m_pack, torch.int32, (LR, B, N), "m_pack")
     if m_rank is not None:
         kernels.check(m_rank, torch.float32, (LR, B, N), "m_rank")
@@ -633,7 +663,7 @@ def bpe_resolve(
         slot_overflow.data_ptr(), x_iw.data_ptr(),
         lengths.data_ptr(), p2i.data_ptr() if p2i is not None else None,
         B, N, LR, a_max, int(spm_iw), int(unk_id), tables.id_offset,
-        int(tables.fast), tables.trie_v,
+        int(tables.fast), tables.trie_v, int(mark),
         out_ids.data_ptr(), out_starts.data_ptr(), out_ends.data_ptr(),
         counts.data_ptr(), fallback.data_ptr(),
     )
@@ -649,9 +679,11 @@ def bpe_segment(
     a_max: int,
     lw: int | None = None,
     bounded: bool = False,
+    mark: bool = False,
 ):
-    """Walk then resolve: (ids, starts, ends, counts, fallback)."""
+    """Walk then resolve: (ids, starts, ends, counts, fallback); ``mark``
+    as :func:`bpe_resolve`."""
     m_pack, m_rank, slot_overflow = bpe_walk(tables, x_iw, lengths, spm_iw,
                                              lw=lw, bounded=bounded)
     return bpe_resolve(tables, m_pack, m_rank, slot_overflow, x_iw, lengths,
-                       spm_iw, unk_id, a_max)
+                       spm_iw, unk_id, a_max, mark)

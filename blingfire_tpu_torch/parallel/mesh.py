@@ -235,7 +235,9 @@ class ShardedSpRunner(_Sharded):
         the three regions of ``dispatch_docs``), packs it with K4, and the
         ranks all-gather the packed rows; every rank stitches the whole
         batch.  Returns (ids, bounds, need, status, ShardedStats) as
-        mesh.py:158-183."""
+        mesh.py:158-183, save that K2 marks the tokens over a capped walk,
+        as in ``dispatch_docs``: ``need`` holds the documents of the
+        overflowing units, not of their whole rows."""
         tok = self.tok
         runner = tok._unit_runner()
         if not (runner.compact_ok and 0 <= unk_id < (1 << 20)):
@@ -260,7 +262,8 @@ class ShardedSpRunner(_Sharded):
         step = dedup.launch_rows(tok, N, None)
         for a in range(0, hi - lo, step):
             z = min(a + step, hi - lo)
-            ids, st, counts, fb = runner._kernel(xd[a:z], ld[a:z], unk_id)
+            ids, st, counts, fb = runner._kernel(xd[a:z], ld[a:z], unk_id,
+                                                 mark=True)
             shard_stats(ids, counts, acc)
             dedup.pack_out_compact(ids, st, counts, fb, out=out[a:z])
         packed = self._gather(out)

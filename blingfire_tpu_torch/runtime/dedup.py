@@ -16,7 +16,8 @@ packs the unique ones back to back into N-wide rows in three regions:
     A2  ▁-initial units of 9-16 symbols       walked at depth 16, bounded
     B   the rest                              BPE: depth 16, unbounded (a
                                               live state at the cap flags
-                                              the row for fallback);
+                                              the unit for fallback: K2
+                                              marks its token);
                                               unigram: the model's full
                                               max_len, no flag
 
@@ -24,7 +25,10 @@ Each region is one segment + pack over its exact row count (BPE: walk,
 resolve, the walk's ranks passed on in rank mode; unigram: walk, Viterbi),
 split only so that no launch's walk scratch passes MAX_LAUNCH_ROWS rows or
 SCRATCH_BYTES (:func:`launch_rows`).  The packed result of a batch crosses
-to the host in one copy, and native ``stitch`` writes the flat ids.
+to the host in one copy, and native ``stitch`` writes the flat ids: a unit
+with a marked token, or every unit of a row K2 flags whole (too many arcs,
+an anomaly), is resolved-fallback for the rest of the call, and every other
+unit of the row goes to the unit cache.
 
 **The NumPy path** (``dispatch``/``collect``; a chunk-safe model whose
 window or ids do not fit the compact lanes, ``compact_ok`` false: a window
@@ -305,14 +309,16 @@ class UnitRunner:
         )
 
     def _kernel(self, xd, ld, unk_id: int, lw: int | None = None,
-                bounded: bool = False):
-        """One device pass over packed unit rows: (ids, starts, counts, fb)."""
+                bounded: bool = False, mark: bool = False):
+        """One device pass over packed unit rows: (ids, starts, counts, fb);
+        ``mark``: K2 marks the tokens over a capped walk instead of flagging
+        the row (BPE; :func:`bpe_ops.bpe_resolve`)."""
         tok = self.tok
         if tok.is_bpe:
             ids, st, _en, counts, fb = bpe_ops.bpe_segment(
                 tok.tables, xd, ld, self.spm_iw, unk_id,
                 min(tok.a_max, bpe_ops.RESOLVE_MAX_ARCS), lw=lw,
-                bounded=bounded,
+                bounded=bounded, mark=mark,
             )
             return ids, st, counts, fb
         # bounded unit rows cap the walk AND the DP ring at the unit length
@@ -333,9 +339,11 @@ class UnitRunner:
                       counters=None):
         """Queue a batch's device pass: native ``units_analyze`` (timed as
         the stage "dispatch.analyze"), the three regions' launches and one
-        copy to the host.  Returns the state for :meth:`collect_docs`,
-        which counts into the same ``counters`` (the global ones by
-        default)."""
+        copy to the host.  Every launch asks K2 for marks (only region B's
+        walk can stop at its cap), so that the stitch sends only the unit
+        that overflowed to the fallback.  Returns the state for
+        :meth:`collect_docs`, which counts into the same ``counters`` (the
+        global ones by default)."""
         tok = self.tok
         N = tok.n_doc
         dev = tok.device
@@ -363,25 +371,29 @@ class UnitRunner:
                 for lo in range(plo, phi, step):
                     hi = min(lo + step, phi)
                     ids, st, counts, fb = self._kernel(
-                        xd[lo:hi], ld[lo:hi], unk_id, lw=lw, bounded=bounded)
+                        xd[lo:hi], ld[lo:hi], unk_id, lw=lw, bounded=bounded,
+                        mark=True)
                     pack_out_compact(ids, st, counts, fb, out=out[lo:hi])
         host, done = _to_host(out)
         return nu, host, done, c
 
     def collect_docs(self, state):
         """Returns (flat ids int32, bounds int64 (B+1,), need_fb bool (B,),
-        status uint8 (B,) — 0 ok / 1 invalid / 2 overflow).  Times the wait
-        for the card ("collect.wait") and the native stitch
-        ("collect.stitch"), and counts the rows K4 flagged (the last lane)
-        in ``flagged_rows``."""
+        status uint8 (B,) — 0 ok / 1 invalid / 2 overflow).  A document
+        needs the fallback when its status is not 0 or it holds a unit the
+        card flagged: a unit with a marked token, or any unit of a row
+        flagged whole.  Times the wait for the card ("collect.wait") and the
+        native stitch ("collect.stitch"), and adds the stitch's counts to
+        ``flagged_rows`` (rows flagged whole or with a marked token) and
+        ``fallback_units``."""
         nu, host, done, c = state
         with metrics.stage("collect.wait", c):
             if done is not None:
                 done.synchronize()
-        rows = host.numpy()
-        c.flagged_rows += int(np.count_nonzero(rows[:, -1]))
         with metrics.stage("collect.stitch", c):
-            ids, bounds, need = nu.stitch(rows, ID_SHIFT)
+            ids, bounds, need = nu.stitch(host.numpy(), ID_SHIFT)
+        c.flagged_rows += nu.flagged_rows
+        c.fallback_units += nu.fallback_units
         return ids, bounds, need, nu.status
 
     def encode_docs(self, docs_b: list[bytes], unk_id: int):

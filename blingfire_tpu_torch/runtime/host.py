@@ -30,7 +30,11 @@ document longer than ``row_max`` (past the window, or a BPE document past
 that is not chunk-safe, only at a ▁ that no vocabulary match crosses), which
 gives the same ids.  Documents the device flags, and documents that no split
 fits, go to the native runtime's TextToIds; its ids are reference-exact, as
-the scalar oracle's are.  The JAX package's fixed batch shapes, its b""
+the scalar oracle's are.  On the native unit path the device flags the unit,
+not the row: K2 marks the token over a walk cut at its depth cap, and only
+the documents that hold that unit (or a unit of a row flagged whole: too
+many arcs, an anomaly) take the fallback.  The classic rows and the NumPy
+unit path flag whole rows.  The JAX package's fixed batch shapes, its b""
 padding and its power-of-two row counts exist for XLA's compile cache and
 are not ported; the rows of a batch go to the device grouped by width
 (128, 256, ... up to ``row_max``), which gives the same ids.
@@ -696,7 +700,8 @@ class SpTokenizer:
     def _units_collect(self, docs_b: list[bytes], state, unk_id: int, c):
         """The batch's flat (ids, bounds) of ``UnitRunner.dispatch_docs``:
         the stages "collect" (the wait and the native stitch) and, apart
-        from it, "fallback" (one native call a flagged document)."""
+        from it, "fallback" (one native call a document that holds a
+        flagged unit)."""
         with metrics.stage("collect", c):
             ids, bounds, need, status = self._unit_runner().collect_docs(state)
         if need.any():

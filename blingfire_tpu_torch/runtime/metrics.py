@@ -38,7 +38,12 @@ class Counters:
     # cross-batch unit cache (dedup cumulative over the corpus)
     cache_units: int = 0  # distinct units interned over the run
     dispatched_rows: int = 0  # device rows actually dispatched (cache misses)
-    flagged_rows: int = 0  # device rows whose fallback flag was set
+    # device rows whose fallback flag was set; on the native unit path,
+    # counted by the stitch: rows flagged whole or holding a marked token
+    flagged_rows: int = 0
+    # units the native stitch made resolved-fallback (a marked token, or a
+    # row flagged whole): their documents take the fallback for the call
+    fallback_units: int = 0
     # batches through the NumPy unit path (a chunk-safe model off the
     # compact lanes, runtime/dedup.py)
     units_np_batches: int = 0
@@ -58,6 +63,7 @@ class Counters:
             "cache_units": self.cache_units,
             "dispatched_rows": self.dispatched_rows,
             "flagged_rows": self.flagged_rows,
+            "fallback_units": self.fallback_units,
             "units_np_batches": self.units_np_batches,
             "stage_seconds": dict(self.stage_seconds),
             "bytes_per_second": self.bytes_in / total if total > 0 else 0.0,

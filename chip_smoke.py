@@ -395,7 +395,8 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         B, N = x.shape
         before = {k: stats[k]["ms"] for k in stats}
         r_k, r, _k_ms, _v_ms, claim = bpe_pair_vs_plain(
-            stats, "bpe", bpe_ops, tables, x, ln, spm, a_max, lw, bounded)
+            stats, "bpe", bpe_ops, tables, x, ln, spm, a_max, lw, bounded,
+            mark=True)
         # K4 on the kernel's resolve output
         ids_k, st_k, _e, cnt_k, fb_k = r_k
         pack_vs_plain(stats[("pack_out_compact", "bpe")], dedup, ids_k, st_k,
@@ -405,9 +406,12 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
                         cnt_k, fb_k)
         per = {k[0]: round(stats[k]["ms"] - before[k], 5) for k in stats
                if k[0] != "scatter_trie"}
+        marked = st_k & bpe_ops.MARK_BIT != 0
         log(f"[kernels] region rows={B} lw={lw} bounded={bounded}: walk, "
-            f"resolve, pack equal their plain versions; fallback rows "
-            f"{int(fb_k.sum())}; trie entries read {r.entries('trie_next')} "
+            f"resolve (marking), pack equal their plain versions; fallback "
+            f"rows {int(fb_k.sum())}, marked tokens {int(marked.sum())} in "
+            f"{int(marked.any(dim=1).sum())} rows; trie entries read "
+            f"{r.entries('trie_next')} "
             f"in {r.steps} live lane-steps; ms per launch {per}; {claim}")
 
     def once():
@@ -415,7 +419,8 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
         for x, ln, lw, bounded in regions:
             m, mr, so = bpe_ops.bpe_walk(tables, x, ln, spm, lw=lw,
                                          bounded=bounded)
-            r = bpe_ops.bpe_resolve(tables, m, mr, so, x, ln, spm, 0, a_max)
+            r = bpe_ops.bpe_resolve(tables, m, mr, so, x, ln, spm, 0, a_max,
+                                    mark=True)
             dedup.pack_out_compact(r[0], r[1], r[3], r[4])
 
     profiled_device_ms(once, stats)
@@ -426,9 +431,10 @@ def bpe_kernels(tok, model, docs, native, bpe_ops, dedup, dev):
 
 def bpe_pair_vs_plain(stats, path: str, bpe_ops, t, x, ln, spm: int,
                       a_max: int, lw=None, bounded: bool = False,
-                      reps=(50, 5, 2)):
-    """One K1 and one K2 launch (on K1's output) against their plain
-    versions on rows ``x``: errors, event times (``reps``: kernel, plain
+                      reps=(50, 5, 2), mark: bool = False):
+    """One K1 and one K2 launch (on K1's output; ``mark``: K2's marking
+    mode, as the unit path launches it) against their plain versions on
+    rows ``x``: errors, event times (``reps``: kernel, plain
     walk, plain resolve) and the bound's bytes and operations into
     ``stats[(kernel, path)]``.  Returns (K2's output, the walk's reads,
     K1 ms, K2 ms, K2's claim: a log fragment with its depth, the largest
@@ -457,17 +463,19 @@ def bpe_pair_vs_plain(stats, path: str, bpe_ops, t, x, ln, spm: int,
     s["bytes"] += B * N * 4 + B * 4 + planes * LW * B * N * 4 + B * N \
         + r.table_bytes()
     s["ops"] += LW * B * N
-    r_k = bpe_ops.bpe_resolve(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max)
-    r_p = bpe_ops._resolve_plain(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max)
+    r_k = bpe_ops.bpe_resolve(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max,
+                              mark)
+    r_p = bpe_ops._resolve_plain(t, m_k, mr_k, so_k, x, ln, spm, 0, a_max,
+                                 mark)
     torch.cuda.synchronize()
     s = stats[("bpe_resolve", path)]
     s["err"] = max(s["err"], max_abs_err(zip(r_k, r_p)))
     del r_p
     v_ms = cuda_ms(lambda: bpe_ops.bpe_resolve(
-        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max), reps[0])
+        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max, mark), reps[0])
     s["ms"] += v_ms
     s["plain_ms"] += cuda_ms(lambda: bpe_ops._resolve_plain(
-        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max), reps[2], warm=1)
+        t, m_k, mr_k, so_k, x, ln, spm, 0, a_max, mark), reps[2], warm=1)
     surv, rstart, _re, _an, _v = bpe_ops._filter_plain(t, m_k, x, ln, spm)
     n_match = int(surv.sum((0, 2)).clamp(max=a_max).sum()) \
         if mr_k is not None else 0

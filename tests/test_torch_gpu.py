@@ -17,7 +17,8 @@ K8 and K10 also on a lookup below slot 0, where the JAX package's clamp
 takes a transition that the automaton does not have; K11 pack_out (at
 widths 1 to 1,024, aligned or not) and K12 shard_stats (also at row
 counts around a warp and past a wave's spans), K2 on the seeded
-edge rows of testing.resolve_edge_rows in its three modes, and the routes
+edge rows of testing.resolve_edge_rows in its three modes, K2's marking mode
+there and on region B's unit rows, and the routes
 of a window of 2,048 symbols on the card against the CPU.
 
 Marked ``gpu``: each test decides in its body whether a CUDA device is
@@ -883,6 +884,57 @@ def test_resolve_kernel_on_edge_rows(mode):
         for name, a, b in zip(("ids", "starts", "ends", "counts",
                                "fallback"), got, want):
             assert torch.equal(a, b), (case["name"], name)
+
+
+@pytest.mark.parametrize("mode", ["plain", "priority", "rank"])
+def test_resolve_kernel_marks_on_edge_rows(mode):
+    """K2's marking mode on testing.resolve_edge_rows (overflowed starts
+    covered by tokens, and some a_max cut leaves uncovered) against its
+    plain version."""
+    _need_cuda()
+    t, spm = _k2_tables(mode)
+    for case in testing.resolve_edge_rows(spm):
+        m, so, x, ln = (torch.from_numpy(case[k]).cuda() for k in (
+            "m_pack", "slot_overflow", "x", "lengths"))
+        mr = torch.from_numpy(case["m_rank"]).cuda() if mode == "rank" \
+            else None
+        got = bpe.bpe_resolve(t, m, mr, so, x, ln, spm, 3, case["a_max"],
+                              mark=True)
+        want = bpe._resolve_plain(t, m, mr, so, x, ln, spm, 3, case["a_max"],
+                                  mark=True)
+        for name, a, b in zip(("ids", "starts", "ends", "counts",
+                               "fallback"), got, want):
+            assert torch.equal(a, b), (case["name"], name)
+
+
+@pytest.mark.parametrize("budget", ["model", "tight"])
+def test_resolve_kernel_marks_on_region_b_rows(budget):
+    """K2's marking mode on the unit rows' region B (runs of one long
+    character past the depth-16 cap beside other units) against its plain
+    version, at the model's arc budget and at one that half the rows pass,
+    then K4 on the marked output."""
+    _need_cuda()
+    tok, spm_iw, regions = _setup()
+    x, ln = regions[2]
+    t = tok.tables
+    m, mr, so = bpe.bpe_walk(t, x, ln, spm_iw, lw=16, bounded=False)
+    assert so.any()
+    a_max = tok.a_max
+    if budget == "tight":
+        survive, run_start, _re, _an, _v = bpe._filter_plain(t, m, x, ln,
+                                                             spm_iw)
+        a_max = int((survive.sum(dim=(0, 2)) + run_start.sum(dim=1))
+                    .median())
+    got = bpe.bpe_resolve(t, m, mr, so, x, ln, spm_iw, 0, a_max, mark=True)
+    want = bpe._resolve_plain(t, m, mr, so, x, ln, spm_iw, 0, a_max,
+                              mark=True)
+    for name, a, b in zip(("ids", "starts", "ends", "counts", "fallback"),
+                          got, want):
+        assert torch.equal(a, b), name
+    ids, st, _en, counts, fb = got
+    assert ((st & bpe.MARK_BIT) != 0).any()
+    out = dedup.pack_out_compact(ids, st, counts, fb)
+    assert torch.equal(out, dedup._pack_out_compact_plain(ids, st, counts, fb))
 
 
 @pytest.mark.parametrize("layout", ["rows", "wordpiece_slab"])

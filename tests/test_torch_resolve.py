@@ -11,7 +11,13 @@ plain EMIT.  Ids, starts, ends, counts and flags must equal _resolve_plain
 on every row, flagged rows included: gpt2-shaped unit rows (plain and
 merge-priority modes), the spm-BPE-shaped rank rows (trie and comb tables,
 unit and classic rows), the rank-fault model's rows and the seeded edge
-rows of testing.resolve_edge_rows."""
+rows of testing.resolve_edge_rows.
+
+K2's marking mode (every launch whose rows go to the native stitch): the
+marks fall on exactly the tokens that cover a start whose walk the depth
+cap cut, inside the punctuation-run unit alone; the row's flag keeps
+arc_overflow | anomaly; ids, ends and counts, and the starts below the
+mark, equal the default mode's."""
 
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from test_torch_bpe import (REGIONS, RANK_FAULT_DOCS, _jax_resolve,  # noqa: F40
                             _jax_walk, _one_thread, _rank_setup, _region,
                             _rows, _setup)
 
-from blingfire_tpu_torch import testing
+from blingfire_tpu_torch import native, testing
 from blingfire_tpu_torch.formats.consts import TokAlgo
 from blingfire_tpu_torch.models.loader import load_bytes
 from blingfire_tpu_torch.ops import bpe
@@ -215,3 +221,107 @@ def test_rank_mode_resolve_matches_both_jax_branches(monkeypatch, kind, row,
     assert ok.sum() > 0
     for name, a, b in zip(("ids", "starts", "ends", "counts"), port, gather):
         np.testing.assert_array_equal(a[ok], b[ok], err_msg=name)
+
+
+# rare long words: ▁-initial units past 16 symbols, packed into region B
+# beside the punctuation runs
+LONG_WORDS = [b"internationalization", b"counterrevolutionary",
+              b"electroencephalogram", b"uncharacteristically",
+              b"incomprehensibilities", b"interdisciplinarity",
+              b"telecommunications", b"photosynthetically",
+              b"misrepresentations", b"overcompensations"]
+# one run a row, past the longest piece the depth-16 walk can finish: "-"
+# runs are pieces alone, "=" runs only after a ▁ (testing.LONG_CHARS)
+RUN_DOCS = [b"see " + b"-" * 20 + b" end", b"so " + b"=" * 20]
+
+
+@functools.lru_cache(maxsize=None)
+def _run_rows(algo):
+    """(tables, spm_iw, region B rows x, lengths, the runs' input weights)
+    of one batch of gpt2-shaped units: two rows, each one punctuation run
+    among rare long words."""
+    tok, _jt, spm_iw, _regions = _setup(algo)
+    docs = ([RUN_DOCS[0]] + [b"an " + w for w in LONG_WORDS[:5]]
+            + [RUN_DOCS[1]] + [b"the " + w for w in LONG_WORDS[5:]])
+    nu = native.units_analyze(docs, tok.n_doc, tok._sym2iw, spm_iw, True,
+                              False, None)
+    lo, hi = nu.split_rows, nu.n_rows
+    x = torch.from_numpy(nu.px[lo:hi].copy())
+    ln = torch.from_numpy(nu.plen[lo:hi].copy())
+    nu.close()
+    runs = {int(tok._sym2iw[c]) for c in b"-="} | {spm_iw}
+    return tok.tables, spm_iw, x, ln, runs
+
+
+def _check_marks(t, m_pack, m_rank, so, x, ln, spm_iw, a_max, unk_id=0):
+    """K2's plain version with marks against the default mode on the same
+    walk; returns (its output, whether a row's overflowed starts all lie
+    inside tokens, arc_overflow | anomaly)."""
+    want = bpe._resolve_plain(t, m_pack, m_rank, so, x, ln, spm_iw, unk_id,
+                              a_max)
+    got = bpe._resolve_plain(t, m_pack, m_rank, so, x, ln, spm_iw, unk_id,
+                             a_max, mark=True)
+    ids, starts, ends, counts, fb = got
+    for name, a, b in (("ids", ids, want[0]), ("ends", ends, want[2]),
+                       ("counts", counts, want[3])):
+        assert torch.equal(a, b), name
+    assert torch.equal(starts & (bpe.MARK_BIT - 1), want[1])
+    marks = (starts & bpe.MARK_BIT) != 0
+    B, N = x.shape
+    valid = torch.arange(N)[None, :] < ln[:, None]
+    over = so & valid
+    covered = torch.zeros_like(over)
+    for b in range(B):
+        for k in range(int(counts[b])):
+            st, en = int(want[1][b, k]), int(ends[b, k])
+            assert bool(marks[b, k]) == bool(over[b, st:en + 1].any()), (b, k)
+            covered[b, st:en + 1] = True
+        assert not marks[b, int(counts[b]):].any()
+    whole = (over & ~covered).any(dim=1)
+    survive, run_start, _re, anomaly, _v = bpe._filter_plain(
+        t, m_pack, x, ln, spm_iw)
+    arcs = survive.sum(dim=(0, 2)) + run_start.sum(dim=1)
+    row_flags = (arcs > a_max) | anomaly
+    assert torch.equal(fb, whole | row_flags)
+    # the default mode flags every row with an overflowed start
+    assert torch.equal(want[4], over.any(dim=1) | row_flags)
+    return got, ~whole, row_flags
+
+
+@pytest.mark.parametrize("algo", ALGOS, ids=["bpe_opt", "merges_priority"])
+def test_marks_fall_on_the_run_units_tokens_alone(algo):
+    t, spm_iw, x, ln, runs = _run_rows(algo)
+    m, mr, so = bpe.bpe_walk(t, x, ln, spm_iw, lw=16, bounded=False)
+    assert len(x) == 2 and so.any(dim=1).all()
+    survive, run_start, _re, _an, _v = bpe._filter_plain(t, m, x, ln, spm_iw)
+    arcs = survive.sum(dim=(0, 2)) + run_start.sum(dim=1)
+    # a budget that the wider row passes: that row stays flagged whole
+    a_max = int(arcs.max()) - 1
+    got, covered, row_flags = _check_marks(t, m, mr, so, x, ln, spm_iw, a_max)
+    assert covered.all() and row_flags.tolist() == (arcs > a_max).tolist()
+    assert row_flags.any() and not row_flags.all()
+    _ids, starts, ends, counts, _fb = got
+    marks = (starts & bpe.MARK_BIT) != 0
+    for b in range(len(x)):
+        k = int(counts[b])
+        assert 0 < int(marks[b].sum()) < k
+        # every marked token lies inside the row's run unit (▁ and the run)
+        for j in torch.nonzero(marks[b, :k]).flatten().tolist():
+            st = int(starts[b, j]) & (bpe.MARK_BIT - 1)
+            en = int(ends[b, j])
+            assert set(x[b, st:en + 1].tolist()) <= runs
+    # with the model's budget no row is flagged at all
+    _got, covered, row_flags = _check_marks(t, m, mr, so, x, ln, spm_iw,
+                                            bpe.RESOLVE_MAX_ARCS)
+    assert covered.all() and not row_flags.any()
+
+
+@pytest.mark.parametrize("mode", ["plain", "priority", "rank"])
+def test_marks_on_edge_rows(mode):
+    t, spm_iw = _mode_tables(mode)
+    for case in testing.resolve_edge_rows(spm_iw, n=128):
+        m_pack, so, x, ln = (torch.from_numpy(case[k]) for k in (
+            "m_pack", "slot_overflow", "x", "lengths"))
+        m_rank = torch.from_numpy(case["m_rank"]) if mode == "rank" else None
+        _check_marks(t, m_pack, m_rank, so, x, ln, spm_iw, case["a_max"],
+                     unk_id=3)
