@@ -491,16 +491,23 @@ class SpTokenizer:
         return [(w, np.flatnonzero(cls == k)) for k, w in enumerate(widths)
                 if (cls == k).any()]
 
-    def _classic_rows(self, x: np.ndarray, lengths: np.ndarray, unk_id: int):
+    def _classic_rows(self, x: np.ndarray, lengths: np.ndarray, unk_id: int,
+                      c=None):
         """The classic doc-row device pass (host.py:254-284) over prepped
         rows of positive length up to ``row_max``, grouped by width: each
         group's rows cut to the narrowest of 128, 256, ... (and row_max)
         that holds them, which
         gives the same ids.  Returns a handle for :meth:`_rows_out`, with the
-        device work and its device-to-host copies queued."""
+        device work and its device-to-host copies queued.  The rows, their
+        lanes and symbols are counted in ``c.classic_rows``,
+        ``c.classic_lanes`` and ``c.classic_symbols``."""
         dev = self.device
         groups = []
         for w, idx in self._row_groups(lengths):
+            if c is not None:
+                c.classic_rows += len(idx)
+                c.classic_lanes += w * len(idx)
+                c.classic_symbols += int(lengths[idx].sum())
             xd = torch.from_numpy(np.ascontiguousarray(x[idx, :w])).to(dev)
             ld = torch.from_numpy(np.ascontiguousarray(lengths[idx])).to(dev)
             out = self._segment(xd, ld, unk_id)
@@ -583,18 +590,24 @@ class SpTokenizer:
         long documents to the host instead.  None where no split fits (or
         "▁" alone is no piece), the input is invalid or the device flags a
         chunk: those take the fallback.  Flagged rows are counted in
-        ``c.flagged_rows``."""
+        ``c.flagged_rows``, chunk rows in ``c.chunk_rows``.  Timed inside
+        the stage "chunk": "chunk.prep" (each document's native prep),
+        "chunk.crossed" (the walk of :meth:`_crossed`) and "chunk.rows" (the
+        chunk rows' device pass and its ids)."""
         results: list[list[int] | None] = [None] * len(docs)
         if not self._splittable:
             return results
-        prepped = [(i, r) for i, r in enumerate(map(self._overflow_syms, docs))
-                   if r is not None]
+        with metrics.stage("chunk.prep", c):
+            prepped = [(i, r) for i, r in
+                       enumerate(map(self._overflow_syms, docs))
+                       if r is not None]
         if not prepped:
             return results
         if not self._chunk_safe:
-            xx = np.concatenate([a for _i, (x, _s) in prepped
-                                 for a in (x, np.full(1, -1, np.int32))])
-            crossed = self._crossed(xx)
+            with metrics.stage("chunk.crossed", c):
+                xx = np.concatenate([a for _i, (x, _s) in prepped
+                                     for a in (x, np.full(1, -1, np.int32))])
+                crossed = self._crossed(xx)
         per_doc: list[tuple[int, int]] = []
         rows: list[np.ndarray] = []
         off = 0
@@ -607,12 +620,19 @@ class SpTokenizer:
                 rows += [x[s:e] for s, e in spans]
         if not rows:
             return results
+        # the chunk rows' device pass, timed as "chunk.rows" by the clock
+        # alone: a stage's profiler range over card work would show on the
+        # card's timeline (metrics.stage)
+        t = time.perf_counter()
         x = np.full((len(rows), self.row_max), -1, np.int32)
         lengths = np.array([len(r) for r in rows], np.int32)
         for r, ch in enumerate(rows):
             x[r, : len(ch)] = ch
-        ids, counts, fb = self._rows_out(self._classic_rows(x, lengths, unk_id),
-                                         c)
+        ids, counts, fb = self._rows_out(
+            self._classic_rows(x, lengths, unk_id, c), c)
+        cc = c or metrics.global_counters()
+        cc.chunk_rows += len(rows)
+        cc.stage_seconds["chunk.rows"] += time.perf_counter() - t
         off = np.concatenate([[0], np.cumsum(counts)])
         row = 0
         for i, k in per_doc:
@@ -621,19 +641,27 @@ class SpTokenizer:
             row += k
         return results
 
-    def _classic_dispatch(self, docs_b: list[bytes], unk_id: int):
-        """Prep a batch and queue the device pass of its rows up to
-        ``row_max``: (state, rows)."""
-        x, lengths, status = self._prep_batch(docs_b)
-        rows = np.flatnonzero((lengths > 0) & (lengths <= self.row_max))
-        handle = self._classic_rows(x[rows], lengths[rows], unk_id)
+    def _classic_dispatch(self, docs_b: list[bytes], unk_id: int, c=None):
+        """Prep a batch (the stage "dispatch.prep") and queue the device pass
+        of its rows up to ``row_max``: (state, rows)."""
+        with metrics.stage("dispatch.prep", c):
+            x, lengths, status = self._prep_batch(docs_b)
+            rows = np.flatnonzero((lengths > 0) & (lengths <= self.row_max))
+        handle = self._classic_rows(x[rows], lengths[rows], unk_id, c)
         return (rows, status, lengths, handle), len(rows)
 
     def _classic_collect(self, docs_b: list[bytes], state, unk_id: int, c):
-        """The batch's flat (ids, bounds) of a :meth:`_classic_dispatch`."""
+        """The batch's flat (ids, bounds) of a :meth:`_classic_dispatch`:
+        the stage "collect" ("collect.wait" for the card, "collect.rows_out"
+        for the ids' scatter), then :meth:`_finish`."""
         rows, status, lengths, handle = state
         with metrics.stage("collect", c):
-            ids, counts, fb = self._rows_out(handle, c)
+            with metrics.stage("collect.wait", c):
+                done = handle[2]  # _rows_out's own wait then returns at once
+                if done is not None:
+                    done.synchronize()
+            with metrics.stage("collect.rows_out", c):
+                ids, counts, fb = self._rows_out(handle, c)
             cnt = np.zeros(len(docs_b), np.int64)
             cnt[rows] = counts
             bounds = np.zeros(len(docs_b) + 1, np.int64)
@@ -668,10 +696,12 @@ class SpTokenizer:
 
     # ---------------------------------------------------- the NumPy unit path
 
-    def _units_np_dispatch(self, docs_b: list[bytes], unk_id: int):
-        """Prep a batch and queue the NumPy unit path's device pass
-        (``UnitRunner.dispatch``; host.py:706): (state, rows)."""
-        x, spm, lengths, status = self._prep_batch(docs_b, with_spm=True)
+    def _units_np_dispatch(self, docs_b: list[bytes], unk_id: int, c=None):
+        """Prep a batch (the stage "dispatch.prep") and queue the NumPy unit
+        path's device pass (``UnitRunner.dispatch``; host.py:706): (state,
+        rows)."""
+        with metrics.stage("dispatch.prep", c):
+            x, spm, lengths, status = self._prep_batch(docs_b, with_spm=True)
         st = self._unit_runner().dispatch(x, spm, lengths, unk_id)
         return (x, lengths, status, st), len(st[4])  # st[4]: the packed rows
 
@@ -688,7 +718,7 @@ class SpTokenizer:
             rows = np.flatnonzero(need & (lengths > 0)
                                   & (lengths <= self.row_max))
             cids, counts, fb = self._rows_out(
-                self._classic_rows(x[rows], lengths[rows], unk_id), c)
+                self._classic_rows(x[rows], lengths[rows], unk_id, c), c)
             off = np.zeros(len(rows) + 1, np.int64)
             np.cumsum(counts, out=off[1:])
             repl = {int(k): cids[off[i] : off[i + 1]].tolist()
@@ -748,7 +778,7 @@ class SpTokenizer:
             dispatch_b, collect_b = route
             return run_pipeline(
                 docs_b, batch_docs,
-                lambda chunk: dispatch_b(chunk, unk_id),
+                lambda chunk: dispatch_b(chunk, unk_id, c),
                 lambda chunk, st: collect_b(chunk, st, unk_id, c),
                 c)
         runner = self._unit_runner()
@@ -785,7 +815,7 @@ class SpTokenizer:
                                                           counters=c)
             ids, bounds = self._units_collect(docs_b, state, unk_id, c)
         else:
-            state, _rows = route[0](docs_b, unk_id)
+            state, _rows = route[0](docs_b, unk_id, c)
             ids, bounds = route[1](docs_b, state, unk_id, c)
         with metrics.stage("lists", c):
             return [ids[bounds[i] : bounds[i + 1]].tolist()

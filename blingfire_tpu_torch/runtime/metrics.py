@@ -47,6 +47,13 @@ class Counters:
     # batches through the NumPy unit path (a chunk-safe model off the
     # compact lanes, runtime/dedup.py)
     units_np_batches: int = 0
+    # the classic doc rows (runtime/host.py::_classic_rows): rows launched,
+    # their lanes (the sum of the rows' widths) and the symbols in them;
+    # chunk_rows of them are pieces of documents past the window
+    classic_rows: int = 0
+    classic_lanes: int = 0
+    classic_symbols: int = 0
+    chunk_rows: int = 0
 
     def as_dict(self) -> dict:
         total = sum(self.stage_seconds.values())
@@ -65,6 +72,10 @@ class Counters:
             "flagged_rows": self.flagged_rows,
             "fallback_units": self.fallback_units,
             "units_np_batches": self.units_np_batches,
+            "classic_rows": self.classic_rows,
+            "classic_lanes": self.classic_lanes,
+            "classic_symbols": self.classic_symbols,
+            "chunk_rows": self.chunk_rows,
             "stage_seconds": dict(self.stage_seconds),
             "bytes_per_second": self.bytes_in / total if total > 0 else 0.0,
         }
